@@ -1,0 +1,553 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's Speed-ANN search path on one GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, one JSON line each:
+
+  1. device  — the card's name and power limit;
+  2. build   — nvcc builds the three gather-distance kernels (csrc/*.cu);
+  3. kernels — each kernel against its plain torch version at the search
+               path's shapes (N = 1M, d = 128; B·W = 512 × C = 32 and
+               B = 64 × C = 256), plus d = 960, a bf16 table, padding ids,
+               a ragged C for dma, and integer data held to exact equality;
+  4. data    — 1M SIFT-like vectors: 1000 Gaussian clusters rescaled and
+               rounded to integers in [0, 255], plus 264 queries;
+  5. graph   — a fixture graph (the port's kNN-24 plus 8 uniform random
+               out-edges per vertex, R = 32), saved as an index file and
+               loaded back with AnnIndex.load;
+  6. search  — speedann (k=10, L=128, M=8, W=8) through every backend
+               (ref, rowgather, dma, dedup_gather): 4 batches of 64 queries
+               and 8 single queries each, all bit-identical to ref (ids,
+               dists and the 8 SearchStats counters); topm and bfis once
+               with rowgather against ref.  Each path (algorithm/backend)
+               runs with the launch counts set to 0 just before it and read
+               just after: its backend's kernel must launch, no other may;
+  7. recall  — recall@10 against AnnIndex.exact, at least 0.25;
+  8. timing  — per kernel its time, its plain version's time and its bound
+               on the ids of a real mid-search step (speedann: 512 × 32;
+               topm: 64 × 256);
+  9. profile — one speedann batch under torch.profiler: wall time, device
+               busy time and idle share, the top ops by device time.
+
+The line before the last holds the kernels; the last is
+``{"ok": true, "device": {...}}``.  With integer coordinates in [0, 255] and
+d = 128 every f32 sum is exact in any order, which is why the backends must
+agree bit for bit.  Needs one CUDA device; exits non-zero on any failure.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+N = 1_000_000                 # vectors in the index: SIFT1M's size
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+BACKENDS = ("ref", "rowgather", "dma", "dedup_gather")
+# backend -> the kernel its distance calls launch (ref launches none)
+BACKEND_KERNEL = {"ref": None, "rowgather": "l2dist_rowgather",
+                  "dma": "l2dist_dma", "dedup_gather": "dedupdist"}
+SPIN_CYCLES = 2_000_000       # ~1 ms of device spin at the H100's clock
+KERNELS = {
+    # name: (source, the TPU kernel it replaces)
+    "l2dist_rowgather": ("src/repro_torch/csrc/rowgather.cu",
+                         "src/repro/kernels/l2dist.py:57"),
+    "l2dist_dma": ("src/repro_torch/csrc/dma.cu",
+                   "src/repro/kernels/l2dist.py:125"),
+    "dedupdist": ("src/repro_torch/csrc/dedup.cu",
+                  "src/repro/kernels/dedup.py:110"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def make_data(seed: int, n: int, d: int = 128, n_clusters: int = 1000,
+              n_queries: int = 264):
+    """SIFT-like integer vectors: cluster centres N(0, 1), unit noise,
+    rescaled by the base's range and rounded into [0, 255]."""
+    rng = np.random.RandomState(seed)
+    centres = rng.normal(size=(n_clusters, d)).astype(np.float32)
+    base = centres[rng.randint(0, n_clusters, n)]
+    base += rng.normal(size=(n, d)).astype(np.float32)
+    queries = centres[rng.randint(0, n_clusters, n_queries)]
+    queries += rng.normal(size=(n_queries, d)).astype(np.float32)
+    lo, hi = float(base.min()), float(base.max())
+
+    def scale(x):
+        return np.clip(np.rint((x - lo) / (hi - lo) * 255.0), 0, 255
+                       ).astype(np.float32)
+    return scale(base), scale(queries), rng
+
+
+def time_ms(fn, *args, reps: int = 30, **kw) -> float:
+    """Median device time of ``fn(*args, **kw)`` by CUDA events (3 warm-up
+    calls first).  Each call follows a write of 128 MB that evicts the 50 MB
+    L2 (a search step meets its rows cold, so the timing must too) and a
+    device spin that holds the start event back while the host enqueues the
+    whole call, so the reading holds no host launch gaps however many ops
+    ``fn`` issues.  A call whose start event had already fired once ``fn``
+    and the end event were enqueued is not counted: the spin doubles and the
+    call is timed again."""
+    import torch
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn(*args, **kw)
+    spin, times = SPIN_CYCLES, []
+    while len(times) < reps:
+        flush.zero_()
+        torch.cuda._sleep(spin)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args, **kw)
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            times.append(start.elapsed_time(end))
+        elif spin >= 64 * SPIN_CYCLES:
+            raise RuntimeError(f"{getattr(fn, '__name__', fn)}: the host "
+                               f"still enqueues after a {spin}-cycle spin")
+        else:
+            spin *= 2
+    return float(np.median(times))
+
+
+def bound(table, ids, metric: str):
+    """(bound_ms, bound_by): the least time for the gather-distance of
+    these inputs — the distinct valid rows, the ids, the queries and the
+    output each moved once, against 2-3 flops per element of each valid
+    pair."""
+    import torch
+    n, d = table.shape
+    b, c = ids.shape
+    valid = ids < n
+    rows = int(torch.unique(ids[valid]).numel())
+    nbytes = (rows * d * table.element_size() + ids.numel() * 4
+              + b * d * 4 + b * c * 4)
+    flops = int(valid.sum()) * d * (3 if metric == "l2" else 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernels(seed: int):
+    """Phase 3: each kernel against its plain version on the card."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dedup import dedupdist
+    from repro_torch.kernels.l2dist import l2dist_dma, l2dist_rowgather
+
+    plain = {"l2dist_rowgather": ref.dist_ref, "dedupdist": ref.dist_ref,
+             "l2dist_dma": ref.dist_expanded_ref}
+    kern = {"l2dist_rowgather": l2dist_rowgather, "dedupdist": dedupdist,
+            "l2dist_dma": l2dist_dma}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def ids_for(rows, b, c):
+        # ids in [0, rows) with about 1 in 8 set to padding (>= rows, +inf)
+        # and 1 in 64 negative (row 0)
+        ids = torch.randint(0, rows, (b, c), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        u = torch.rand((b, c), generator=gen, device="cuda")
+        ids = torch.where(u < 0.125, rows + 7, ids)
+        return torch.where(u > 1 - 1 / 64, -3, ids).to(torch.int32)
+
+    tables = {
+        "f32_d128": torch.randn((N, 128), generator=gen, device="cuda"),
+        "int_d128": torch.randint(0, 256, (N, 128), generator=gen,
+                                  device="cuda").float(),
+        "f32_d960": torch.randn((100_000, 960), generator=gen,
+                                device="cuda"),
+    }
+    tables["bf16_d128"] = tables["f32_d128"].to(torch.bfloat16)
+    shapes = [(512, 32), (64, 256), (64, 250)]    # 250: ragged for dma
+    err = {k: 0.0 for k in kern}
+    cases = 0
+    for tname, table in tables.items():
+        tol = 2e-2 if tname.startswith("bf16") else 1e-5
+        exact = tname.startswith("int")
+        rows, d = table.shape
+        for b, c in shapes:
+            ids = ids_for(rows, b, c)
+            if tname.startswith("int"):
+                q = torch.randint(0, 256, (b, d), generator=gen,
+                                  device="cuda").float()
+            else:
+                q = torch.randn((b, d), generator=gen, device="cuda")
+            for metric in ("l2", "ip"):
+                outs = {}
+                for name, fn in kern.items():
+                    got = fn(table, ids, q, metric=metric)
+                    want = plain[name](table, ids, q, metric)
+                    torch.cuda.synchronize()
+                    pad = ids >= rows
+                    if not bool(torch.isinf(got[pad]).all()):
+                        raise AssertionError(f"{name}: padding not +inf")
+                    if exact:
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"{name} {tname} {metric} ({b},{c}): not "
+                                f"exact on integer data")
+                    elif metric == "l2":
+                        torch.testing.assert_close(got, want, rtol=tol,
+                                                   atol=tol)
+                    else:
+                        # an inner product cancels: its rounding error
+                        # scales with sum |x_i q_i|, not with the result
+                        scale = -ref.dist_ref(table.abs(), ids, q.abs(),
+                                              "ip")
+                        bad = (got - want).abs()[~pad] \
+                            > tol * (1 + scale[~pad])
+                        if bool(bad.any()):
+                            raise AssertionError(
+                                f"{name} {tname} ip ({b},{c}): beyond "
+                                f"{tol} x (1 + sum |x q|)")
+                    if tname == "f32_d128":
+                        e = (got[~pad] - want[~pad]).abs().max().item()
+                        err[name] = max(err[name], e)
+                    outs[name] = got
+                    cases += 1
+                if not torch.equal(outs["l2dist_rowgather"],
+                                   outs["dedupdist"]):
+                    raise AssertionError(
+                        f"dedupdist != rowgather bit for bit ({tname}, "
+                        f"{metric}, ({b},{c}))")
+    del tables
+    torch.cuda.empty_cache()
+    return err, cases
+
+
+def run_backend(index, queries, params):
+    """4 batches of 64 + 8 single queries through one backend; returns
+    the concatenated (ids, dists, stats) and the batch latencies."""
+    import torch
+    fn = index.searcher(params)
+    outs, lat = [], []
+    for s in range(0, 256, 64):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(queries[s:s + 64])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        outs.append(r)
+    for s in range(256, 264):
+        outs.append(fn(queries[s:s + 1]))
+    ids = torch.cat([o.ids for o in outs]).cpu()
+    dists = torch.cat([o.dists for o in outs]).cpu()
+    stats = {f: torch.cat([getattr(o.stats, f) for o in outs]).cpu()
+             for f in outs[0].stats._fields}
+    return ids, dists, stats, lat
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with every launch count set to 0 just before it and
+    read just after: (result, {kernel: launches})."""
+    import torch
+    from repro_torch.kernels import _cuda
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(_cuda.LAUNCHES)
+
+
+def check_launches(path_launches) -> None:
+    """Each "algorithm/backend" path must have launched its backend's
+    kernel and no other."""
+    for path, counts in path_launches.items():
+        want = BACKEND_KERNEL[path.split("/")[1]]
+        for k, v in counts.items():
+            if k == want and v == 0:
+                raise AssertionError(f"{path}: kernel {k} never launched")
+            if k != want and v != 0:
+                raise AssertionError(f"{path}: launched {k} {v} times")
+
+
+def same(a, b) -> bool:
+    import torch
+    ia, da, sa = a[:3]
+    ib, db, sb = b[:3]
+    return (torch.equal(ia, ib) and torch.equal(da, db)
+            and all(torch.equal(sa[f], sb[f]) for f in sa))
+
+
+def _recording(inner, seen: list):
+    """A DistFn that calls ``inner`` and keeps each call's (B, C) ids and
+    queries in ``seen``."""
+    def dist_fn(graph, active, nbrs, q):
+        seen.append((nbrs.reshape(nbrs.shape[0], -1).clone(), q))
+        return inner(graph, active, nbrs, q)
+    return dist_fn
+
+
+def step_ids(index, queries, params):
+    """The (B, C) candidate ids of one mid-search distance call of a real
+    search, for timing the kernels on the path's own data: the speedann
+    local step (B·W lanes × R) and the topm step (B × M·R)."""
+    import torch
+    from repro_torch.core.bfis import search_topm_batch
+    from repro_torch.core.speedann import search_speedann_batch
+    from repro_torch.kernels.registry import make_dist_fn
+
+    inner = make_dist_fn("rowgather", metric="l2")
+    out = {}
+    for name, fn in (("speedann", search_speedann_batch),
+                     ("topm", search_topm_batch)):
+        seen = []
+        fn(index.graph, queries[:64], params.to_search_config("l2"),
+           dist_fn=_recording(inner, seen))
+        ids, q = seen[len(seen) // 2]
+        out[name] = (ids.contiguous(), q.contiguous())
+    torch.cuda.synchronize()
+    return out
+
+
+def time_kernels(index, queries, params, launches, err):
+    """Per kernel: its time, its plain version's time and its bound at the
+    speedann step's shape (the kernels line), and at the topm step's."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dedup import (dedup_launch, dedup_plan,
+                                           dedupdist)
+    from repro_torch.kernels.l2dist import l2dist_dma, l2dist_rowgather
+
+    table = index.graph.vectors
+    calls = {"l2dist_rowgather": (l2dist_rowgather, ref.dist_ref),
+             "l2dist_dma": (l2dist_dma, ref.dist_expanded_ref),
+             "dedupdist": (dedupdist, ref.dist_ref)}
+    rows, shapes = [], {}
+    for step, (ids, q) in step_ids(index, queries, params).items():
+        bms, bby = bound(table, ids, "l2")
+        n = table.shape[0]
+        shapes[step] = {"shape": list(ids.shape),
+                        "distinct_rows": int(torch.unique(
+                            ids[ids < n]).numel()),
+                        "valid": int((ids < n).sum()),
+                        "bound_ms": bms, "bound_by": bby}
+        for kname, (kfn, pfn) in calls.items():
+            ms = time_ms(kfn, table, ids, q, metric="l2")
+            pms = time_ms(pfn, table, ids, q, "l2")
+            shapes[step][kname] = {"ms": ms, "plain_ms": pms}
+            if kname == "dedupdist":
+                plan = dedup_plan(ids, n)
+                out = torch.empty(ids.shape, device=ids.device)
+                shapes[step][kname]["kernel_only_ms"] = time_ms(
+                    dedup_launch, table, plan, q, out, "l2")
+                shapes[step][kname]["plan_ms"] = time_ms(dedup_plan, ids, n)
+            if step == "speedann":
+                src, replaces = KERNELS[kname]
+                rows.append({"name": kname, "route": "cuda", "source": src,
+                             "replaces": replaces,
+                             "launches": launches[kname],
+                             "max_abs_err": err[kname], "ms": ms,
+                             "plain_ms": pms, "bound_ms": bms,
+                             "bound_by": bby, "library_ms": None,
+                             "shape": list(ids.shape)})
+    return rows, shapes
+
+
+def profile_batch(index, queries, params, smi):
+    """One speedann batch of 64 through rowgather: its wall time (median of
+    3 plain runs), then one run under torch.profiler for the summed kernel
+    time, the device's idle share against the plain wall time, and the
+    ops that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p = params.with_(backend="rowgather")
+    fn = index.searcher(p)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(queries[:64])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(walls))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(queries[:64])
+        torch.cuda.synchronize()
+        wall_profiled = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    events = prof.key_averages()
+    # kernels (device events) give the busy time; the aten ops that
+    # launched them give the breakdown
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    ops = sorted((e for e in events
+                  if e.device_type == DeviceType.CPU and dev_us(e) > 0),
+                 key=dev_us, reverse=True)
+    measured = busy_ms > 0
+    dist = [e for e in kernels if "rowgather_kernel" in e.key]
+    dist_ms = sum(dev_us(e) for e in dist) / 1e3
+    dist_n = sum(e.count for e in dist)
+    return {"phase": "profile", "backend": "rowgather", "batch": 64,
+            "wall_ms": wall, "wall_ms_profiled": wall_profiled,
+            "device_busy_ms": busy_ms if measured else "not measured",
+            "idle_share": 1 - busy_ms / wall if measured
+            else "not measured",
+            "kernel_launches": sum(e.count for e in kernels),
+            "rowgather_calls": dist_n,
+            "rowgather_mean_ms": dist_ms / dist_n if dist_n
+            else "not measured",
+            "top_ops_device_ms": [[e.key, dev_us(e) / 1e3, e.count]
+                                  for e in ops[:10]],
+            "card": smi}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on "
+              "the card", file=sys.stderr)
+        return 2
+    from repro_torch.ann import AnnIndex, IndexSpec, SearchParams
+    from repro_torch.core import knn_graph, make_padded_csr, recall_at_k
+    from repro_torch.kernels import _cuda
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    emit({"phase": "device", "name": name, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    built = _cuda.build()
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in _cuda.BUILD_LOG.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": built, "ptxas": ptxas})
+
+    t0 = time.perf_counter()
+    err, cases = check_kernels(args.seed)
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
+          "cases": cases, "max_abs_err_f32": err,
+          "tolerance": {"f32": 1e-5, "bf16": 2e-2, "integer": "exact"}})
+
+    t0 = time.perf_counter()
+    base, queries_np, rng = make_data(args.seed, N)
+    emit({"phase": "data", "seconds": time.perf_counter() - t0,
+          "n": base.shape[0], "d": base.shape[1],
+          "queries": queries_np.shape[0]})
+
+    t0 = time.perf_counter()
+    base_dev = torch.from_numpy(base).cuda()
+    knn = knn_graph(base_dev, 24)
+    rand = torch.from_numpy(rng.randint(0, N, size=(N, 8))
+                            ).to("cuda", torch.int32)
+    torch.cuda.synchronize()
+    t_knn = time.perf_counter() - t0
+    graph = make_padded_csr(torch.cat([knn, rand], dim=1), base_dev,
+                            device="cuda")
+    del knn, rand, base_dev
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        path = AnnIndex(IndexSpec(metric="l2", degree=32), graph).save(
+            os.path.join(tmp, "index.npz"))
+        t_save = time.perf_counter() - t1
+        del graph
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        index = AnnIndex.load(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t1
+    emit({"phase": "graph", "knn_seconds": t_knn, "save_seconds": t_save,
+          "load_seconds": t_load, "degree": index.graph.degree,
+          "device_bytes": index.device_bytes,
+          "medoid": int(index.graph.medoid)})
+
+    queries = torch.from_numpy(queries_np).cuda()
+    params = SearchParams(k=10, queue_len=128, m_max=8, num_walkers=8,
+                          algorithm="speedann")
+    t0 = time.perf_counter()
+    res, path_launches = {}, {}
+    for be in BACKENDS:
+        res[be], path_launches[f"speedann/{be}"] = counted(
+            run_backend, index, queries, params.with_(backend=be))
+    others = {}
+    for algo in ("topm", "bfis"):
+        p = params.with_(algorithm=algo)
+        others[algo] = []
+        for be in ("ref", "rowgather"):
+            r, path_launches[f"{algo}/{be}"] = counted(
+                index.search, queries[:64], p.with_(backend=be))
+            others[algo].append(r)
+    search_s = time.perf_counter() - t0
+    for be in BACKENDS[1:]:
+        if not same(res["ref"], res[be]):
+            raise AssertionError(f"backend {be} differs from ref")
+    for algo, (a, b) in others.items():
+        if not (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+                and all(torch.equal(x, y) for x, y in zip(a.stats,
+                                                          b.stats))):
+            raise AssertionError(f"{algo}: rowgather differs from ref")
+    check_launches(path_launches)
+    # the kernels line: each kernel's launches on its own backend's
+    # speedann path, the main path
+    launches = {k: path_launches[f"speedann/{be}"][k]
+                for be, k in BACKEND_KERNEL.items() if k}
+    ids, dists, stats = res["ref"][:3]
+    if ids.shape != (264, 10) or not bool(torch.isfinite(dists).all()):
+        raise AssertionError("search results malformed")
+    emit({"phase": "search", "seconds": search_s,
+          "bit_identical": list(BACKENDS), "launches": path_launches,
+          "p50_batch_ms": {be: float(np.median(r[3])) * 1e3
+                           for be, r in res.items()},
+          "mean_stats": {f: float(v.double().mean())
+                         for f, v in stats.items()},
+          "card": smi})
+
+    gt, _ = index.exact(queries[:256], 10)
+    recall = recall_at_k(ids[:256], gt, 10)
+    emit({"phase": "recall", "recall_at_10": recall, "floor": 0.25})
+    if recall < 0.25:
+        raise AssertionError(f"recall@10 {recall} below 0.25")
+
+    rows, shapes = time_kernels(index, queries, params, launches, err)
+    emit({"phase": "timing", "shapes": shapes, "card": smi})
+    emit(profile_batch(index, queries, params, smi))
+    emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
+    print(smi, flush=True)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
