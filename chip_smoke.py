@@ -6,17 +6,21 @@
 Phases, one JSON line each:
 
   1. device  — the card's name and power limit;
-  2. build   — nvcc builds the three gather-distance kernels (csrc/*.cu);
-  3. kernels — each kernel against its plain torch version at the search
-               path's shapes (N = 1M, d = 128; B·W = 512 × C = 32 and
-               B = 64 × C = 256), plus d = 960, a bf16 table, padding ids,
-               a ragged C for dma, and integer data held to exact equality;
+  2. build   — nvcc builds the six kernels (csrc/*.cu), in parallel;
+  3. kernels — each kernel against its plain torch version: the f32
+               gather-distance kernels at the search path's shapes (N = 1M,
+               d = 128; B·W = 512 × C = 32 and B = 64 × C = 256), plus
+               d = 960, a bf16 table, padding ids, a ragged C for dma, and
+               integer data held to exact equality; the int8 kernels bit for
+               bit at the same shapes and d = 960, with padding, negative ids
+               and a zero query; sort_pairs exactly on (512, 512) and
+               (64, 1024) rows with heavy key ties and +inf padding;
   4. data    — 1M SIFT-like vectors: 1000 Gaussian clusters rescaled and
                rounded to integers in [0, 255], plus 264 queries;
   5. graph   — a fixture graph (the port's kNN-24 plus 8 uniform random
                out-edges per vertex, R = 32), saved as an index file and
                loaded back with AnnIndex.load;
-  6. search  — speedann (k=10, L=128, M=8, W=8) through every backend
+  6. search  — speedann (k=10, L=128, M=8, W=8) through every f32 backend
                (ref, rowgather, dma, dedup_gather): 4 batches of 64 queries
                and 8 single queries each, all bit-identical to ref (ids,
                dists and the 8 SearchStats counters); topm and bfis once
@@ -24,16 +28,30 @@ Phases, one JSON line each:
                runs with the launch counts set to 0 just before it and read
                just after: its backend's kernel must launch, no other may;
   7. recall  — recall@10 against AnnIndex.exact, at least 0.25;
-  8. timing  — per kernel its time, its plain version's time and its bound
-               on the ids of a real mid-search step (speedann: 512 × 32;
-               topm: 64 × 256);
-  9. profile — one speedann batch under torch.profiler: wall time, device
+  8. merge   — every frontier insert of one speedann batch, captured at its
+               call site (core/bfis.py expand_batch), replayed through
+               ops.topl_merge (two sort_pairs launches each): equal to
+               queue.insert bit for bit;
+  9. quant   — the 1M index quantized on the card (quantize_graph, int8
+               per-vector codes beside the f32 table), saved and loaded;
+               speedann with rerank_k = 30 through ref_int8, rowgather_int8
+               and dedup_gather_int8 on the same queries as phase 6, all
+               bit-identical, each path launching its own kernel only;
+               recall@10 beside the f32 recall (floor 0.25); one ref_bf16
+               batch on a bf16 copy;
+ 10. timing  — per kernel its time, its plain version's time and its bound
+               on the inputs of a real mid-search call (speedann: 512 × 32;
+               topm: 64 × 256; the int8 kernels on the quantized speedann
+               step; sort_pairs on a merge's rows, beside torch.sort of the
+               keys alone);
+ 11. profile — one speedann batch under torch.profiler: wall time, device
                busy time and idle share, the top ops by device time.
 
 The line before the last holds the kernels; the last is
 ``{"ok": true, "device": {...}}``.  With integer coordinates in [0, 255] and
-d = 128 every f32 sum is exact in any order, which is why the backends must
-agree bit for bit.  Needs one CUDA device; exits non-zero on any failure.
+d = 128 every f32 sum is exact in any order, which is why the f32 backends
+must agree bit for bit; the int8 backends agree because their integer sums
+are exact and their float epilogue is rounded op by op alike.  Needs one CUDA device; exits non-zero on any failure.
 """
 from __future__ import annotations
 
@@ -54,10 +72,16 @@ N = 1_000_000                 # vectors in the index: SIFT1M's size
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+INT8_OP_PER_S = 1979e12       # H100 SXM int8, dense
 BACKENDS = ("ref", "rowgather", "dma", "dedup_gather")
-# backend -> the kernel its distance calls launch (ref launches none)
+INT8_BACKENDS = ("ref_int8", "rowgather_int8", "dedup_gather_int8")
+# backend -> the kernel its distance calls launch (ref* launch none); the
+# "merge" path is ops.topl_merge
 BACKEND_KERNEL = {"ref": None, "rowgather": "l2dist_rowgather",
-                  "dma": "l2dist_dma", "dedup_gather": "dedupdist"}
+                  "dma": "l2dist_dma", "dedup_gather": "dedupdist",
+                  "ref_int8": None, "rowgather_int8": "int8dist_rowgather",
+                  "dedup_gather_int8": "dedupdist_int8", "ref_bf16": None,
+                  "topl_merge": "sort_pairs"}
 SPIN_CYCLES = 2_000_000       # ~1 ms of device spin at the H100's clock
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
@@ -67,6 +91,12 @@ KERNELS = {
                    "src/repro/kernels/l2dist.py:125"),
     "dedupdist": ("src/repro_torch/csrc/dedup.cu",
                   "src/repro/kernels/dedup.py:110"),
+    "int8dist_rowgather": ("src/repro_torch/csrc/rowgather_int8.cu",
+                           "src/repro/quant/kernels.py:161"),
+    "dedupdist_int8": ("src/repro_torch/csrc/dedup_int8.cu",
+                       "src/repro/kernels/dedup.py:179"),
+    "sort_pairs": ("src/repro_torch/csrc/bitonic.cu",
+                   "src/repro/kernels/bitonic.py:75"),
 }
 
 
@@ -238,6 +268,104 @@ def check_kernels(seed: int):
     return err, cases
 
 
+def check_quant_sort_kernels(seed: int):
+    """Phase 3, second half: the int8 kernels bit for bit against
+    ``int8dist_ref`` (and each other), sort_pairs exactly against
+    ``sort_pairs_ref``.  Returns (max |err| per kernel, cases)."""
+    import torch
+    from repro_torch.kernels.bitonic import sort_pairs
+    from repro_torch.kernels.dedup import dedupdist_int8
+    from repro_torch.kernels.ref import sort_pairs_ref
+    from repro_torch.quant import QuantSpec, fit_scales, quantize
+    from repro_torch.quant.kernels import int8dist_ref, int8dist_rowgather
+
+    kern = {"int8dist_rowgather": int8dist_rowgather,
+            "dedupdist_int8": dedupdist_int8}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    err = {k: 0.0 for k in list(kern) + ["sort_pairs"]}
+    cases = 0
+    spec = QuantSpec("int8")
+    for rows, d in ((N, 128), (100_000, 960)):
+        x = torch.randn((rows, d), generator=gen, device="cuda")
+        scales = fit_scales(x, spec)
+        codes = quantize(x, spec, scales)
+        del x
+        for b, c in ((512, 32), (64, 256), (64, 250)):
+            ids = torch.randint(0, rows, (b, c), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            u = torch.rand((b, c), generator=gen, device="cuda")
+            ids = torch.where(u < 0.125, rows + 7, ids)
+            ids = torch.where(u > 1 - 1 / 64, -3, ids).to(torch.int32)
+            q = torch.randn((b, d), generator=gen, device="cuda")
+            q[0] = 0.0                                   # a zero query
+            for metric in ("l2", "ip"):
+                want = int8dist_ref(codes, scales, ids, q, metric)
+                outs = []
+                for name, fn in kern.items():
+                    got = fn(codes, scales, ids, q, metric=metric)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        fin = torch.isfinite(want)
+                        e = (got[fin] - want[fin]).abs().max().item()
+                        raise AssertionError(
+                            f"{name} d={d} {metric} ({b},{c}): not bit-"
+                            f"identical to int8dist_ref (max |err| {e})")
+                    if not bool(torch.isinf(got[ids >= rows]).all()):
+                        raise AssertionError(f"{name}: padding not +inf")
+                    outs.append(got)
+                    cases += 1
+                if not torch.equal(outs[0], outs[1]):
+                    raise AssertionError("dedupdist_int8 != "
+                                         "int8dist_rowgather bit for bit")
+        del codes, scales
+    for b, n in ((512, 512), (64, 1024)):
+        keys = torch.randint(0, 8, (b, n), generator=gen,
+                             device="cuda").float() * 0.25
+        keys[torch.rand((b, n), generator=gen, device="cuda") < 0.25] = \
+            float("inf")
+        p0 = torch.randint(0, 4, (b, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        p1 = torch.randint(-20, 20, (b, n), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        got = sort_pairs(keys, p0, p1)
+        torch.cuda.synchronize()
+        for g, w in zip(got, sort_pairs_ref(keys, p0, p1)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"sort_pairs ({b},{n}) differs from "
+                                     f"sort_pairs_ref")
+        cases += 1
+    torch.cuda.empty_cache()
+    return err, cases
+
+
+def quantized_index(index, dtype: str):
+    """The index quantized on the card (``quantize_graph``, per-vector
+    scales, the f32 table kept for re-ranking), saved and loaded back:
+    (loaded index, facts of the round trip)."""
+    import torch
+    from repro_torch.ann import AnnIndex, quantize_graph
+    from repro_torch.quant import QuantSpec
+
+    t0 = time.perf_counter()
+    graph = quantize_graph(index.graph, QuantSpec(dtype))
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    spec = index.spec.with_(quant=dtype)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = AnnIndex(spec, graph).save(os.path.join(tmp, "qindex.npz"))
+        loaded = AnnIndex.load(path)
+    if not (torch.equal(loaded.graph.codes, graph.codes)
+            and torch.equal(loaded.graph.scales, graph.scales)):
+        raise AssertionError(f"{dtype} codes changed in save/load")
+    info = {"quantize_seconds": t_quant,
+            "codes_bytes": graph.codes.numel() * graph.codes.element_size(),
+            "scales_bytes": graph.scales.numel() * 4,
+            "device_bytes": loaded.device_bytes}
+    del graph
+    torch.cuda.empty_cache()
+    return loaded, info
+
+
 def run_backend(index, queries, params):
     """4 batches of 64 + 8 single queries through one backend; returns
     the concatenated (ids, dists, stats) and the batch latencies."""
@@ -301,16 +429,18 @@ def _recording(inner, seen: list):
     return dist_fn
 
 
-def step_ids(index, queries, params):
+def step_ids(index, queries, params, inner=None):
     """The (B, C) candidate ids of one mid-search distance call of a real
     search, for timing the kernels on the path's own data: the speedann
-    local step (B·W lanes × R) and the topm step (B × M·R)."""
+    local step (B·W lanes × R) and the topm step (B × M·R).  ``inner`` is
+    the DistFn the search runs on (default: rowgather)."""
     import torch
     from repro_torch.core.bfis import search_topm_batch
     from repro_torch.core.speedann import search_speedann_batch
     from repro_torch.kernels.registry import make_dist_fn
 
-    inner = make_dist_fn("rowgather", metric="l2")
+    if inner is None:
+        inner = make_dist_fn("rowgather", metric="l2")
     out = {}
     for name, fn in (("speedann", search_speedann_batch),
                      ("topm", search_topm_batch)):
@@ -321,6 +451,53 @@ def step_ids(index, queries, params):
         out[name] = (ids.contiguous(), q.contiguous())
     torch.cuda.synchronize()
     return out
+
+
+def capture_inserts(index, queries, params):
+    """Every frontier insert of one speedann batch of 64 (rowgather) made
+    at its call site in ``core.bfis.expand_batch``: a list of (frontier,
+    candidate ids, candidate dists, insert's output)."""
+    import torch
+    from repro_torch.core import queue as fq
+    from repro_torch.core.speedann import search_speedann_batch
+
+    real, seen = fq.insert, []
+
+    def recording(f, ids, dists):
+        out = real(f, ids, dists)
+        if sys._getframe(1).f_code.co_name == "expand_batch":
+            seen.append((f, ids, dists, out))
+        return out
+    fq.insert = recording
+    try:
+        search_speedann_batch(index.graph, queries[:64],
+                              params.with_(backend="rowgather")
+                              .to_search_config("l2"))
+    finally:
+        fq.insert = real
+    torch.cuda.synchronize()
+    if not seen:
+        raise AssertionError("no insert captured at expand_batch")
+    return seen
+
+
+def replay_merges(seen):
+    """Each captured insert through ops.topl_merge; every one must equal
+    queue.insert bit for bit (ids, dists, checked, update position)."""
+    import torch
+    from repro_torch.core.queue import INVALID_ID
+    from repro_torch.kernels.ops import topl_merge
+
+    for f, ids, dists, (f2, up, _) in seen:
+        d2, i2, m2, up2 = topl_merge(f.dists, f.ids, f.checked.to(
+            torch.int32), dists, ids)
+        if not (torch.equal(i2, f2.ids) and torch.equal(d2, f2.dists)
+                and torch.equal(up2, up)
+                and torch.equal((m2 == 1) | (i2 == INVALID_ID),
+                                f2.checked)):
+            raise AssertionError(f"topl_merge differs from queue.insert on "
+                                 f"a captured frontier {tuple(f.ids.shape)}")
+    return len(seen)
 
 
 def time_kernels(index, queries, params, launches, err):
@@ -364,6 +541,118 @@ def time_kernels(index, queries, params, launches, err):
                              "plain_ms": pms, "bound_ms": bms,
                              "bound_by": bby, "library_ms": None,
                              "shape": list(ids.shape)})
+    return rows, shapes
+
+
+def int8_bound(codes, ids, queries):
+    """(bound_ms, bound_by) of an int8 gather-distance: the distinct valid
+    code rows with their scales, the ids, the f32 queries and the output
+    each moved once, against a dot and a norm (2 multiply-adds) per element
+    of each valid pair at the card's int8 rate."""
+    import torch
+    n, d = codes.shape
+    b, c = ids.shape
+    valid = ids < n
+    rows = int(torch.unique(ids[valid]).numel())
+    nbytes = rows * (d + 4) + ids.numel() * 4 + b * d * 4 + b * c * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int(valid.sum()) * d * 4 / INT8_OP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sort_bound(keys):
+    """(bound_ms, bound_by) of a (B, n) co-sort: 12 B per element read and
+    written once, against two comparisons per compare-exchange of the
+    bitonic network at the card's f32 rate."""
+    b, n = keys.shape
+    k = n.bit_length() - 1
+    t_bytes = 2 * 12 * b * n / HBM_BYTES_PER_S * 1e3
+    t_ops = b * (n // 2) * (k * (k + 1) // 2) * 2 / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_quant_sort_kernels(qindex, queries, params, launches, err, seen):
+    """The int8 kernels on the ids of a mid-search call of the quantized
+    speedann (and topm) search; sort_pairs on the (dist, id) sort of a
+    mid-search frontier merge, beside torch.sort of its keys alone."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bitonic import sort_pairs
+    from repro_torch.kernels.dedup import (dedup_int8_launch, dedup_plan,
+                                           dedupdist_int8)
+    from repro_torch.kernels.ref import sort_pairs_ref
+    from repro_torch.quant.kernels import (int8dist_ref, int8dist_rowgather,
+                                           make_rowgather_int8_dist_fn,
+                                           query_meta, rowgather_int8_launch)
+
+    codes, scales = qindex.graph.codes, qindex.graph.scales
+    n = codes.shape[0]
+    rows, shapes = [], {}
+    calls = {"int8dist_rowgather": int8dist_rowgather,
+             "dedupdist_int8": dedupdist_int8}
+    steps = step_ids(qindex, queries, params,
+                     inner=make_rowgather_int8_dist_fn("l2"))
+    for step, (ids, q) in steps.items():
+        bms, bby = int8_bound(codes, ids, q)
+        step = "int8_" + step
+        shapes[step] = {"shape": list(ids.shape),
+                        "distinct_rows": int(torch.unique(
+                            ids[ids < n]).numel()),
+                        "valid": int((ids < n).sum()),
+                        "bound_ms": bms, "bound_by": bby}
+        pms = time_ms(int8dist_ref, codes, scales, ids, q, "l2")
+        qm = query_meta(q)
+        out = torch.empty(ids.shape, device=ids.device)
+        shapes[step]["query_meta_ms"] = time_ms(query_meta, q)
+        for kname, kfn in calls.items():
+            ms = time_ms(kfn, codes, scales, ids, q, metric="l2")
+            shapes[step][kname] = {"ms": ms, "plain_ms": pms}
+            if kname == "dedupdist_int8":
+                plan = dedup_plan(ids, n)
+                shapes[step][kname]["kernel_only_ms"] = time_ms(
+                    dedup_int8_launch, codes, scales, plan, qm, out, "l2")
+            else:
+                shapes[step][kname]["kernel_only_ms"] = time_ms(
+                    rowgather_int8_launch, codes, scales, ids, qm, out, "l2")
+            if step == "int8_speedann":
+                src, replaces = KERNELS[kname]
+                rows.append({"name": kname, "route": "cuda", "source": src,
+                             "replaces": replaces,
+                             "launches": launches[kname],
+                             "max_abs_err": err[kname], "ms": ms,
+                             "plain_ms": pms, "bound_ms": bms,
+                             "bound_by": bby, "library_ms": None,
+                             "shape": list(ids.shape)})
+
+    # the sort_pairs calls of one mid-search merge
+    f, ids, dists, _ = seen[len(seen) // 2]
+    real, sorts = ops.sort_pairs, []
+
+    def recording(k, a, b):
+        sorts.append((k, a, b))
+        return real(k, a, b)
+    ops.sort_pairs = recording
+    try:
+        ops.topl_merge(f.dists, f.ids, f.checked.to(torch.int32), dists, ids)
+    finally:
+        ops.sort_pairs = real
+    keys, p0, p1 = (t.contiguous() for t in sorts[1])   # pass 2: (dist, id)
+    bms, bby = sort_bound(keys)
+    ms = time_ms(sort_pairs, keys, p0, p1)
+    pms = time_ms(sort_pairs_ref, keys, p0, p1)
+    lib = time_ms(torch.sort, keys, dim=1, stable=True)
+    shapes["merge"] = {"shape": list(keys.shape), "sort_pairs": {
+        "ms": ms, "plain_ms": pms, "torch_sort_key_only_ms": lib,
+        "pass1_ms": time_ms(sort_pairs, *(t.contiguous()
+                                          for t in sorts[0]))},
+        "bound_ms": bms, "bound_by": bby}
+    src, replaces = KERNELS["sort_pairs"]
+    rows.append({"name": "sort_pairs", "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches["sort_pairs"],
+                 "max_abs_err": err["sort_pairs"], "ms": ms,
+                 "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
+                 "library_ms": lib, "library": "torch.sort (key only)",
+                 "shape": list(keys.shape)})
     return rows, shapes
 
 
@@ -455,9 +744,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     err, cases = check_kernels(args.seed)
+    err2, cases2 = check_quant_sort_kernels(args.seed)
+    err.update(err2)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "cases": cases, "max_abs_err_f32": err,
-          "tolerance": {"f32": 1e-5, "bf16": 2e-2, "integer": "exact"}})
+          "cases": cases + cases2, "max_abs_err_f32": err,
+          "tolerance": {"f32": 1e-5, "bf16": 2e-2, "integer": "exact",
+                        "int8": "exact", "sort_pairs": "exact"}})
 
     t0 = time.perf_counter()
     base, queries_np, rng = make_data(args.seed, N)
@@ -519,8 +811,8 @@ def main() -> int:
     check_launches(path_launches)
     # the kernels line: each kernel's launches on its own backend's
     # speedann path, the main path
-    launches = {k: path_launches[f"speedann/{be}"][k]
-                for be, k in BACKEND_KERNEL.items() if k}
+    launches = {BACKEND_KERNEL[be]: path_launches[f"speedann/{be}"][
+        BACKEND_KERNEL[be]] for be in BACKENDS[1:]}
     ids, dists, stats = res["ref"][:3]
     if ids.shape != (264, 10) or not bool(torch.isfinite(dists).all()):
         raise AssertionError("search results malformed")
@@ -538,7 +830,63 @@ def main() -> int:
     if recall < 0.25:
         raise AssertionError(f"recall@10 {recall} below 0.25")
 
+    t0 = time.perf_counter()
+    seen = capture_inserts(index, queries, params)
+    n_merges, path_launches["merge/topl_merge"] = counted(replay_merges,
+                                                          seen)
+    check_launches({"merge/topl_merge": path_launches["merge/topl_merge"]})
+    launches["sort_pairs"] = path_launches["merge/topl_merge"]["sort_pairs"]
+    emit({"phase": "merge", "seconds": time.perf_counter() - t0,
+          "merges": n_merges, "bit_identical_to": "queue.insert",
+          "rows_L_C": sorted({(*s_[0].ids.shape, s_[1].shape[-1])
+                              for s_ in seen}),
+          "launches": path_launches["merge/topl_merge"]})
+
+    t0 = time.perf_counter()
+    qindex, quant_info = quantized_index(index, "int8")
+    qparams = params.with_(rerank_k=30)
+    qres = {}
+    for be in INT8_BACKENDS:
+        qres[be], path_launches[f"speedann/{be}"] = counted(
+            run_backend, qindex, queries, qparams.with_(backend=be))
+    for be in INT8_BACKENDS[1:]:
+        if not same(qres["ref_int8"], qres[be]):
+            raise AssertionError(f"backend {be} differs from ref_int8")
+    check_launches({p: path_launches[p] for p in path_launches
+                    if p.split("/")[1] in INT8_BACKENDS})
+    for be in INT8_BACKENDS[1:]:
+        launches[BACKEND_KERNEL[be]] = \
+            path_launches[f"speedann/{be}"][BACKEND_KERNEL[be]]
+    qids, qdists = qres["ref_int8"][:2]
+    if qids.shape != (264, 10) or not bool(torch.isfinite(qdists).all()):
+        raise AssertionError("quantized search results malformed")
+    recall_int8 = recall_at_k(qids[:256], gt, 10)
+    bindex, bquant_info = quantized_index(index, "bf16")
+    bres, path_launches["speedann/ref_bf16"] = counted(
+        bindex.search, queries[:64], qparams.with_(backend="ref_bf16"))
+    check_launches({"speedann/ref_bf16": path_launches["speedann/ref_bf16"]})
+    del bindex
+    recall_bf16 = recall_at_k(bres.ids.cpu(), gt[:64], 10)
+    emit({"phase": "quant", "seconds": time.perf_counter() - t0,
+          "int8": quant_info, "bf16": bquant_info, "rerank_k": 30,
+          "bit_identical": list(INT8_BACKENDS),
+          "launches": {p: path_launches[p] for p in path_launches
+                       if p.split("/")[1] in INT8_BACKENDS + ("ref_bf16",)},
+          "p50_batch_ms": {be: float(np.median(r[3])) * 1e3
+                           for be, r in qres.items()},
+          "recall_at_10": {"f32": recall, "int8_rerank30": recall_int8,
+                           "bf16_rerank30_first64": recall_bf16},
+          "floor": 0.25, "card": smi})
+    if min(recall_int8, recall_bf16) < 0.25:
+        raise AssertionError(f"quantized recall@10 {recall_int8} / "
+                             f"{recall_bf16} below 0.25")
+
     rows, shapes = time_kernels(index, queries, params, launches, err)
+    rows2, shapes2 = time_quant_sort_kernels(qindex, queries, qparams,
+                                             launches, err, seen)
+    rows += rows2
+    shapes.update(shapes2)
+    del seen, qindex
     emit({"phase": "timing", "shapes": shapes, "card": smi})
     emit(profile_batch(index, queries, params, smi))
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})

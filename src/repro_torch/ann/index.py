@@ -11,9 +11,20 @@ Port of ``repro.ann.index`` for the search path::
 ``load``/``from_arrays``/``save`` read and write the reference's npz layout
 (formats 1–3), so an index built by ``repro`` searches here unchanged and
 files round-trip both ways.  The search runs every algorithm of the
-single-device path (bfis | topm | speedann) over every f32 distance backend
-and metric, with cosine query normalization, the tombstone mask, exact
+single-device path (bfis | topm | speedann) over every distance backend and
+metric, with cosine query normalization, the tombstone mask, exact
 re-ranking and the neighbor-grouping id remap, in the reference's order.
+
+Quantized storage: :func:`quantize_graph` attaches int8 codes + scales (or
+bf16 codes) to a graph, and ``SearchParams(rerank_k=...)`` makes a search
+two-stage — traversal over the codes through a quantized backend
+(``ref_int8`` | ``rowgather_int8`` | ``dedup_gather_int8`` | ``ref_bf16``),
+then exact f32 re-ranking of the widened pool::
+
+    graph = quantize_graph(index.graph, QuantSpec("int8"))
+    qindex = AnnIndex(index.spec.with_(quant="int8"), graph)
+    res = qindex.search(queries, SearchParams(k=10, rerank_k=30,
+                                              backend="rowgather_int8"))
 """
 from __future__ import annotations
 
@@ -27,10 +38,11 @@ import torch
 from repro_torch.ann.spec import IndexSpec, SearchParams
 from repro_torch.core.bfis import bfis_search_batch, search_topm_batch
 from repro_torch.core.build import exact_knn
-from repro_torch.core.graph import PaddedCSR
+from repro_torch.core.graph import PaddedCSR, _flatten_top
 from repro_torch.core.queue import _sort_by
 from repro_torch.core.speedann import search_speedann_batch
 from repro_torch.device import resolve_device
+from repro_torch.quant import codec as quant_codec
 from repro_torch.quant.scheme import required_quant_dtype
 
 _SAVE_FORMAT = 3
@@ -75,6 +87,29 @@ def exact_rerank(graph: PaddedCSR, q: torch.Tensor, ids: torch.Tensor,
     d = torch.where(ids < n, d, float("inf"))
     d, ids = _sort_by(d, ids.to(torch.int32))
     return ids[:, :k], d[:, :k]
+
+
+def quantize_graph(graph: PaddedCSR, quant) -> PaddedCSR:
+    """Attach a trained quantized table (codes + scales) to a graph, on the
+    graph's device.
+
+    Scales are calibrated on the STORED vectors, so ``codes[i]`` encodes
+    ``vectors[i]``.  With ``keep_float=False`` the exact f32 table is
+    dropped here: ``vectors`` (and the flattened hot-vertex blocks) become
+    the dequantized codes, so an in-memory index and its save/load round
+    trip search alike."""
+    if not quant.enabled:
+        return graph
+    scales = quant_codec.fit_scales(graph.vectors, quant)
+    codes = quant_codec.quantize(graph.vectors, quant, scales)
+    graph = graph._replace(codes=codes, scales=scales.float())
+    if not quant.keep_float:
+        vectors = quant_codec.dequantize(codes, quant, graph.scales)
+        flat = graph.flat
+        if graph.n_top > 0:
+            flat = _flatten_top(graph.nbrs, vectors, graph.n_top)
+        graph = graph._replace(vectors=vectors, flat=flat)
+    return graph
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -233,13 +268,15 @@ class AnnIndex:
             else:
                 codes = up(raw)
             scales = up(np.asarray(arrays["scales"], np.float32))
-        if "vectors" not in arrays:
-            raise NotImplementedError(
-                "keep_float=False index files need the quant codec's "
-                "dequantize: " + _NOT_PORTED.format(6))
+        if "vectors" in arrays:
+            vectors = up(arrays["vectors"])
+        else:
+            # keep_float=False file: the f32 table is the dequantized codes
+            # (exact() and re-ranking read the quantized values)
+            vectors = quant_codec.dequantize(codes, spec.quant, scales)
         graph = PaddedCSR(
             nbrs=up(arrays["nbrs"], torch.int32),
-            vectors=up(arrays["vectors"]),
+            vectors=vectors,
             medoid=torch.tensor(int(arrays["medoid"]), dtype=torch.int32,
                                 device=dev),
             n_top=int(arrays["n_top"]),
@@ -273,10 +310,12 @@ class AnnIndex:
         cached = self._searcher_cache.get(params)
         if cached is not None:
             return cached
-        if required_quant_dtype(params.backend) != "none":
-            raise NotImplementedError(
-                f"quantized backend {params.backend!r}: "
-                + _NOT_PORTED.format(6))
+        need = required_quant_dtype(params.backend)
+        if need != "none" and self.spec.quant.dtype != need:
+            raise ValueError(
+                f"backend {params.backend!r} reads a {need} codes table; "
+                f"this index has quant={self.spec.quant.dtype!r} — rebuild "
+                f"with IndexSpec(quant={need!r}) or pick a matching backend")
         algorithm = params.algorithm
         if algorithm == "sharded":
             raise NotImplementedError(

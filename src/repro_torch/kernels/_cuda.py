@@ -37,11 +37,19 @@ ENTRY = {
             [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _I, _P]),
     "dedup": ("dedup_launch",
               [_P, _I, _L, _I, _P, _P, _P, _L, _L, _P, _P, _I, _I, _P]),
+    "rowgather_int8": ("rowgather_int8_launch",
+                       [_P, _L, _I, _P, _P, _L, _L, _P, _P, _P, _P, _I, _I,
+                        _P]),
+    "dedup_int8": ("dedup_int8_launch",
+                   [_P, _L, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _I,
+                    _I, _P]),
+    "bitonic": ("bitonic_launch", [_P, _P, _P, _P, _P, _P, _L, _I, _P]),
 }
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"l2dist_rowgather": 0, "l2dist_dma": 0,
-                            "dedupdist": 0}
+                            "dedupdist": 0, "int8dist_rowgather": 0,
+                            "dedupdist_int8": 0, "sort_pairs": 0}
 BUILD_LOG: Dict[str, str] = {}      # source name -> nvcc/ptxas output
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -130,8 +138,33 @@ def vec_ok(table: torch.Tensor, queries: torch.Tensor) -> int:
                and queries.data_ptr() % 16 == 0)
 
 
+def int8_vec_ok(codes: torch.Tensor, qc: torch.Tensor) -> int:
+    """1 when int8 code rows can be read as 4-byte words and staged as
+    16-byte chunks, and int32 query codes as 16-byte chunks (d a multiple
+    of 16, both tables 16-byte aligned)."""
+    return int(codes.shape[1] % 16 == 0 and codes.data_ptr() % 16 == 0
+               and qc.data_ptr() % 16 == 0)
+
+
+def check_int8_inputs(kernel: str, codes: torch.Tensor,
+                      scales: torch.Tensor, ids: torch.Tensor,
+                      queries: torch.Tensor) -> None:
+    """:func:`check_inputs` for an int8 codes table with its (N, 1) f32
+    per-vector scales."""
+    if scales.dtype != torch.float32:
+        raise TypeError(f"{kernel}: scales must be float32, got "
+                        f"{scales.dtype}")
+    if scales.device != codes.device:
+        raise ValueError(f"{kernel}: scales on {scales.device}, codes on "
+                         f"{codes.device}")
+    if codes.device.type == "cuda" and not scales.is_contiguous():
+        raise ValueError(f"{kernel}: CUDA inputs must be contiguous")
+    check_inputs(kernel, codes, ids, queries, (torch.int8,))
+
+
 def check_inputs(kernel: str, table: torch.Tensor, ids: torch.Tensor,
-                 queries: torch.Tensor) -> None:
+                 queries: torch.Tensor,
+                 table_dtypes=(torch.float32, torch.bfloat16)) -> None:
     """Device, dtype, shape and contiguity checks shared by the wrappers."""
     if table.dim() != 2 or ids.dim() != 2 or queries.dim() != 2:
         raise ValueError(f"{kernel}: want table (N, d), ids (B, C), queries "
@@ -141,9 +174,9 @@ def check_inputs(kernel: str, table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"{kernel}: queries {tuple(queries.shape)} do not "
                          f"match ids {tuple(ids.shape)} and d = "
                          f"{table.shape[1]}")
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{kernel}: table must be float32 or bfloat16, got "
-                        f"{table.dtype}")
+    if table.dtype not in table_dtypes:
+        raise TypeError(f"{kernel}: table must be one of {table_dtypes}, "
+                        f"got {table.dtype}")
     if ids.dtype != torch.int32 or queries.dtype != torch.float32:
         raise TypeError(f"{kernel}: ids must be int32 and queries float32, "
                         f"got {ids.dtype} and {queries.dtype}")

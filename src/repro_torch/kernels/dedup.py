@@ -1,8 +1,10 @@
-"""Batch-deduplicating gather + distance: the ``dedup_gather`` backend.
+"""Batch-deduplicating gather + distance: the ``dedup_gather`` and
+``dedup_gather_int8`` backends.
 
-Port of ``repro.kernels.dedup`` (f32/bf16 tables; the int8 variant waits
-for the quant codec).  A hot vertex on several queries' (or walkers')
-frontiers is gathered ONCE per step:
+Port of ``repro.kernels.dedup`` (f32/bf16 tables through ``csrc/dedup.cu``,
+int8 codes with per-vector scales through ``csrc/dedup_int8.cu``).  A hot
+vertex on several queries' (or walkers') frontiers is gathered ONCE per
+step:
 
   1. **dedup** (plain torch, as in the reference): a stable sort of the
      flattened (B·C,) ids makes equal ids contiguous runs; ids >= N fold
@@ -11,9 +13,10 @@ frontiers is gathered ONCE per step:
      stages the row in shared memory once and reduces it against exactly
      the lanes of its run, writing ``out[b, c]`` directly.
 
-The per-pair reduction is the one ``rowgather`` uses, so the two kernels
-agree bit for bit on the card.  For CPU tensors :func:`dedupdist` returns
-the plain version (``kernels.ref.dist_ref``).
+The per-pair reduction is the one ``rowgather`` (``rowgather_int8``) uses,
+so the two kernels agree bit for bit on the card.  For CPU tensors
+:func:`dedupdist` returns the plain version (``kernels.ref.dist_ref``) and
+:func:`dedupdist_int8` its own (``quant.kernels.int8dist_ref``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.registry import pad_ids_to_tile, register_backend
+from repro_torch.quant import kernels as _qk
 
 TILE = 8
 
@@ -100,6 +104,37 @@ def dedup_launch(table: torch.Tensor, plan, queries: torch.Tensor,
                  _cuda.vec_ok(table, queries))
 
 
+def dedupdist_int8(codes: torch.Tensor, scales: torch.Tensor,
+                   ids: torch.Tensor, queries: torch.Tensor, *,
+                   metric: str = "l2") -> torch.Tensor:
+    """int8 variant of :func:`dedupdist`: (N, d) int8 codes with (N, 1)
+    per-vector scales; the distinct code rows of the batch are gathered once.
+    Same contract as ``quant.kernels.int8dist_rowgather`` and bit-identical
+    to it and to ``ref_int8``."""
+    _qk._check_per_vector("dedupdist_int8", codes, scales)
+    _cuda.check_int8_inputs("dedupdist_int8", codes, scales, ids, queries)
+    kmetric = _qk._kmetric(metric)
+    if codes.device.type == "cpu":
+        return _qk.int8dist_ref(codes, scales, ids, queries, metric)
+    out = torch.empty(ids.shape, dtype=torch.float32, device=codes.device)
+    if ids.numel():
+        dedup_int8_launch(codes, scales, dedup_plan(ids, codes.shape[0]),
+                          _qk.query_meta(queries), out, kmetric)
+    return out
+
+
+def dedup_int8_launch(codes: torch.Tensor, scales: torch.Tensor, plan,
+                      qmeta, out: torch.Tensor, metric: str) -> None:
+    """Launch ``csrc/dedup_int8.cu`` on a :func:`dedup_plan` and a
+    ``query_meta`` into ``out``."""
+    sorted_ids, run_start, order, c = plan
+    qc, qs, q2 = qmeta
+    _cuda.launch("dedup_int8", "dedupdist_int8",
+                 codes, codes.shape[0], codes.shape[1], scales, sorted_ids,
+                 run_start, order, sorted_ids.numel(), c, qc, qs, q2, out,
+                 int(metric != "l2"), _cuda.int8_vec_ok(codes, qc))
+
+
 def make_dedup_dist_fn(metric: str = "l2"):
     """Batch-major dedup DistFn: the step's whole (B, M·R) candidate grid
     in ONE unique-row gather launch."""
@@ -111,6 +146,28 @@ def make_dedup_dist_fn(metric: str = "l2"):
     return dist_fn
 
 
+def make_dedup_int8_dist_fn(metric: str = "l2"):
+    """Batch-major int8 dedup DistFn: the step's distinct code rows in ONE
+    launch.  Per-vector scales only, like ``rowgather_int8``."""
+    def dist_fn(graph, active_ids, nbr_ids, queries):
+        codes, scales = _qk.require_codes(graph, "int8")
+        if scales.shape[0] == 1:
+            raise NotImplementedError(
+                "dedup_gather_int8 implements the per-vector-scale integer "
+                "path; per-dimension scales are served by 'ref_int8'")
+        b, m, r = nbr_ids.shape
+        d = dedupdist_int8(codes, scales,
+                           nbr_ids.reshape(b, m * r).contiguous(),
+                           queries.contiguous(), metric=metric)
+        return d.reshape(b, m, r)
+    return dist_fn
+
+
 @register_backend("dedup_gather")
 def _dedup_backend(cfg):
     return make_dedup_dist_fn(getattr(cfg, "metric", "l2") or "l2")
+
+
+@register_backend("dedup_gather_int8")
+def _dedup_int8_backend(cfg):
+    return make_dedup_int8_dist_fn(getattr(cfg, "metric", "l2") or "l2")

@@ -11,10 +11,12 @@ Registered backends:
 * ``ref``          — plain-torch two-level gather (``core.bfis.dist_l2``);
 * ``rowgather``    — ``csrc/rowgather.cu``, one warp per candidate;
 * ``dma``          — ``csrc/dma.cu``, cp.async tiles of ``dma_group`` rows;
-* ``dedup_gather`` — ``csrc/dedup.cu``, each distinct row of the step once.
-
-The quantized backends of the reference (``ref_int8``, ``rowgather_int8``,
-``dedup_gather_int8``, ``ref_bf16``) are not ported yet.
+* ``dedup_gather`` — ``csrc/dedup.cu``, each distinct row of the step once;
+* ``ref_int8``, ``rowgather_int8`` (``csrc/rowgather_int8.cu``), ``ref_bf16``
+  — the quantized backends of ``quant.kernels``, on an index built with
+  ``IndexSpec(quant=...)``;
+* ``dedup_gather_int8`` — ``csrc/dedup_int8.cu``, ``dedup_gather`` over int8
+  codes.
 """
 from __future__ import annotations
 
@@ -106,5 +108,6 @@ def _dma_backend(cfg):
                         dma_group=int(getattr(cfg, "dma_group", 8)))
 
 
-# the batch-dedup backend self-registers on import
+# the quantized and batch-dedup backends self-register on import
+import repro_torch.quant.kernels as _quant_kernels  # noqa: E402,F401
 import repro_torch.kernels.dedup as _dedup_kernels  # noqa: E402,F401

@@ -2,9 +2,8 @@
 
 The port's own copy of ``repro.quant.scheme``: a :class:`QuantSpec` says how
 the embedding table is stored (``"none"`` float32, ``"bf16"``, ``"int8"``
-codes + float32 scales).  The quantized distance backends and the codec are
-not ported yet; ``IndexSpec`` and the searcher's backend check need only the
-spec and :func:`required_quant_dtype`.
+codes + float32 scales); ``quant.codec`` encodes the table and
+``quant.kernels`` holds the distance backends that read it.
 """
 from __future__ import annotations
 

@@ -1,5 +1,9 @@
 """The CUDA kernels on the card, against their plain versions.
 
+The f32 gather-distance kernels to 1e-5 (exact on integer data); the int8
+kernels bit for bit; the bitonic co-sort exactly, and the frontier merge on
+it equal to ``queue.insert``.
+
 Every test here needs a CUDA device (the kernels are CUDA C++ with no CPU
 mode) and skips without one.  The file imports no JAX, so it also runs on a
 machine with the card and without JAX::
@@ -10,14 +14,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.ann import quantize_graph
 from repro_torch.core import knn_graph, make_padded_csr
 from repro_torch.core.bfis import search_topm_batch
 from repro_torch.core.config import SearchConfig
+from repro_torch.core.queue import INVALID_ID, Frontier, insert
 from repro_torch.core.speedann import search_speedann_batch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import ref
-from repro_torch.kernels.dedup import dedupdist
+from repro_torch.kernels.bitonic import sort_pairs
+from repro_torch.kernels.dedup import dedupdist, dedupdist_int8
 from repro_torch.kernels.l2dist import l2dist_dma, l2dist_rowgather
+from repro_torch.kernels.ops import topl_merge
+from repro_torch.kernels.ref import sort_pairs_ref
+from repro_torch.quant import QuantSpec, fit_scales, quantize, quantize_query
+from repro_torch.quant.kernels import int8dist_ref, int8dist_rowgather
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +123,147 @@ def test_search_on_card_equals_plain_search_on_cpu(cuda_device, backend,
     fn = {"topm": search_topm_batch, "speedann": search_speedann_batch}[algo]
     want = fn(make_padded_csr(nbrs, x, device="cpu"), q, cfg)
     got = fn(make_padded_csr(nbrs, x, device="cuda"), q.cuda(), cfg)
+    for w, g in zip(want[:2], got[:2]):
+        assert torch.equal(w, g.cpu())
+    for w, g in zip(want[2], got[2]):
+        assert torch.equal(w, g.cpu())
+
+
+# -- int8 kernels and the bitonic co-sort --------------------------------------
+
+def _int8_inputs(n, d, b, c, seed):
+    """Per-vector int8 codes of N(0, 3) rows, queries with a zero row,
+    ids with padding (>= n) and negative ids."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(n, d) * 3).astype(np.float32))
+    spec = QuantSpec("int8")
+    scales = fit_scales(x, spec)
+    codes = quantize(x, spec, scales)
+    q = rng.randn(b, d).astype(np.float32)
+    q[0] = 0.0
+    ids = rng.randint(-3, n + 4, size=(b, c)).astype(np.int32)
+    return (codes.cuda(), scales.cuda(), torch.from_numpy(ids).cuda(),
+            torch.from_numpy(q).cuda())
+
+
+INT8_KERNELS = {"int8dist_rowgather": int8dist_rowgather,
+                "dedupdist_int8": dedupdist_int8}
+
+
+@pytest.mark.parametrize("kernel", list(INT8_KERNELS))
+@pytest.mark.parametrize("n,d,b,c", [(5000, 128, 512, 32),
+                                     (5000, 128, 64, 256), (300, 32, 4, 9),
+                                     (200, 960, 3, 40), (100, 20, 5, 7)])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_int8_kernel_bit_identical_to_plain(cuda_device, kernel, n, d, b, c,
+                                            metric):
+    codes, scales, ids, q = _int8_inputs(n, d, b, c, seed=d + c)
+    before = _cuda.LAUNCHES[kernel]
+    got = INT8_KERNELS[kernel](codes, scales, ids, q, metric=metric)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[kernel] == before + 1
+    assert torch.equal(got, int8dist_ref(codes, scales, ids, q, metric))
+    assert bool(torch.isinf(got[ids >= n]).all())
+    assert torch.equal(got[ids < 0], int8dist_ref(
+        codes, scales, torch.zeros_like(ids), q, metric)[ids < 0])
+
+
+@pytest.mark.parametrize("overlap", ["all_duplicate", "no_overlap"])
+def test_dedup_int8_overlap_extremes(cuda_device, overlap):
+    codes, scales, ids, q = _int8_inputs(6000, 128, 64, 64, seed=21)
+    if overlap == "all_duplicate":
+        ids = torch.full_like(ids, 17)
+    else:
+        ids = torch.randperm(6000, device="cuda")[:64 * 64].reshape(
+            64, 64).to(torch.int32)
+    for metric in ("l2", "ip"):
+        got = dedupdist_int8(codes, scales, ids, q, metric=metric)
+        assert torch.equal(got, int8dist_rowgather(codes, scales, ids, q,
+                                                   metric=metric))
+        assert torch.equal(got, int8dist_ref(codes, scales, ids, q, metric))
+
+
+@pytest.mark.parametrize("b,n", [(3, 1), (4, 2), (5, 8), (64, 1024),
+                                 (512, 512), (2, 16384)])
+def test_sort_pairs_exact_on_ties(cuda_device, b, n):
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    keys = torch.randint(0, 5, (b, n), generator=gen, device="cuda").float()
+    keys[torch.rand((b, n), generator=gen, device="cuda") < 0.2] = \
+        float("inf")
+    p0 = torch.randint(0, 3, (b, n), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    p1 = torch.randint(-9, 9, (b, n), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    before = _cuda.LAUNCHES["sort_pairs"]
+    got = sort_pairs(keys, p0, p1)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sort_pairs"] == before + 1
+    for g, w in zip(got, sort_pairs_ref(keys, p0, p1)):
+        assert torch.equal(g, w)
+
+
+def test_topl_merge_equals_queue_insert_on_card(cuda_device):
+    rng = np.random.RandomState(4)
+    b, ln, c = 64, 128, 256
+    d = np.sort(rng.uniform(0, 10, size=(b, ln)).astype(np.float32), 1)
+    ids = np.stack([rng.choice(100_000, ln, replace=False)
+                    for _ in range(b)]).astype(np.int32)
+    d[:, 100:] = np.inf
+    ids[:, 100:] = INVALID_ID
+    checked = rng.rand(b, ln) < 0.5
+    checked[:, 100:] = True
+    cd = rng.uniform(0, 10, size=(b, c)).astype(np.float32)
+    ci = rng.choice(100_000, size=(b, c)).astype(np.int32)
+    ci[:, :20] = ids[:, :20]
+    cd[:, :20] = d[:, :20]
+    ci[:, -40:] = INVALID_ID
+    cd[:, -40:] = np.inf
+    t = [torch.from_numpy(a).cuda() for a in (d, ids, checked, cd, ci)]
+    f = Frontier(ids=t[1], dists=t[0], checked=t[2])
+    f2, up, _ = insert(f, t[4], t[3])
+    d2, i2, m2, up2 = topl_merge(t[0], t[1], t[2].to(torch.int32), t[3],
+                                 t[4])
+    assert torch.equal(i2, f2.ids) and torch.equal(d2, f2.dists)
+    assert torch.equal(up2, up)
+    assert torch.equal((m2 == 1) | (i2 == INVALID_ID), f2.checked)
+
+
+def test_codec_on_card_equals_cpu(cuda_device):
+    """Scales, codes and query codes are correctly rounded on the card
+    too (a division by a Python scalar on CUDA would multiply by the
+    reciprocal and part by an ulp)."""
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy((rng.randn(20000, 128) * 3).astype(np.float32))
+    for spec in (QuantSpec("int8"), QuantSpec("int8", per_dim=True)):
+        s_cpu, s_gpu = fit_scales(x, spec), fit_scales(x.cuda(), spec)
+        assert torch.equal(s_gpu.cpu(), s_cpu)
+        assert torch.equal(quantize(x.cuda(), spec, s_gpu).cpu(),
+                           quantize(x, spec, s_cpu))
+    for got, want in zip(quantize_query(x.cuda()), quantize_query(x)):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("backend", ["rowgather_int8", "dedup_gather_int8"])
+def test_int8_search_on_card_equals_plain_search_on_cpu(cuda_device,
+                                                        backend):
+    # integer coordinates: the f32 seed distances and ||q||^2 are exact
+    # sums, so the CPU and the card agree on them whatever the order
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randint(0, 256, size=(2000, 32))
+                         .astype(np.float32))
+    q = torch.from_numpy(rng.randint(0, 256, size=(16, 32))
+                         .astype(np.float32))
+    nbrs = torch.cat([knn_graph(x, 12), torch.from_numpy(
+        rng.randint(0, 2000, size=(2000, 4)).astype(np.int32))], dim=1)
+    cfg = SearchConfig(k=10, queue_len=32, m_max=4, num_walkers=4,
+                       dist_backend=backend)
+    spec = QuantSpec("int8")
+    want = search_speedann_batch(
+        quantize_graph(make_padded_csr(nbrs, x, device="cpu"), spec), q,
+        cfg.with_(dist_backend="ref_int8"))
+    got = search_speedann_batch(
+        quantize_graph(make_padded_csr(nbrs, x, device="cuda"), spec),
+        q.cuda(), cfg)
     for w, g in zip(want[:2], got[:2]):
         assert torch.equal(w, g.cpu())
     for w, g in zip(want[2], got[2]):

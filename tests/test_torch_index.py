@@ -137,12 +137,20 @@ def test_not_ported_paths_raise(files, data, tmp_path):
     hnsw = TIndex.load(files["hnsw"][1], device="cpu")
     with pytest.raises(NotImplementedError, match="hnsw"):
         hnsw.search(q, TParams(algorithm="bfis"))
-    bf16 = TIndex.load(files["bf16"][1], device="cpu")
+    # the quantized path is ported: a bf16 index searches through
+    # ref_bf16, a keep_float=False file loads, and a backend of another
+    # dtype raises ValueError as in the reference
+    bf16_ref, bf16_path = files["bf16"]
+    bf16 = TIndex.load(bf16_path, device="cpu")
     assert bf16.graph.codes.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ref_bf16"):
-        bf16.search(q, TParams(backend="ref_bf16"))
+    params = TParams(**PARAMS, backend="ref_bf16")
+    _same(bf16_ref.search(q, JParams(**PARAMS, backend="ref_bf16")),
+          bf16.search(q, params), "l2")
+    with pytest.raises(ValueError, match="int8"):
+        bf16.search(q, TParams(backend="ref_int8"))
     lean = JIndex.build(x, JSpec(degree=12, passes=1, metric="l2",
                                  quant={"dtype": "bf16",
                                         "keep_float": False}))
-    with pytest.raises(NotImplementedError, match="dequantize"):
-        TIndex.load(lean.save(str(tmp_path / "lean")), device="cpu")
+    got = TIndex.load(lean.save(str(tmp_path / "lean")), device="cpu")
+    np.testing.assert_array_equal(got.graph.vectors.numpy(),
+                                  np.asarray(lean.graph.vectors))

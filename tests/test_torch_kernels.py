@@ -105,11 +105,14 @@ def test_unique_ids_inverse_matches_reference(seed, tile):
 
 
 def test_registry_names_and_errors():
+    assert set(registry.available_backends()) == set(
+        j_registry.available_backends())
     assert set(registry.available_backends()) == {
-        "ref", "rowgather", "dma", "dedup_gather"}
+        "ref", "rowgather", "dma", "dedup_gather", "ref_int8",
+        "rowgather_int8", "dedup_gather_int8", "ref_bf16"}
     from repro_torch.core.config import SearchConfig
     with pytest.raises(ValueError, match="available"):
-        registry.resolve_backend(SearchConfig(dist_backend="ref_int8"))
+        registry.resolve_backend(SearchConfig(dist_backend="rowgather_fp8"))
 
 
 @pytest.mark.parametrize("bad", ["ids_dtype", "query_dtype", "shape",
