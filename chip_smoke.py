@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's Speed-ANN search path on one GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--profile-src DIR]
 
 Phases, one JSON line each:
 
@@ -13,8 +13,13 @@ Phases, one JSON line each:
                d = 960, a bf16 table, padding ids, a ragged C for dma, and
                integer data held to exact equality; the int8 kernels bit for
                bit at the same shapes and d = 960, with padding, negative ids
-               and a zero query; sort_pairs exactly on (512, 512) and
-               (64, 1024) rows with heavy key ties and +inf padding;
+               and a zero query; both dedup kernels bit for bit against
+               rowgather on their hard cases (f32, bf16 and int8, d = 128
+               and 960: every lane one id, every lane a different row so
+               that a block's hash table probes, two successive calls,
+               B = C = 1); sort_pairs exactly
+               on (512, 512) and (64, 1024) rows with heavy key ties and
+               +inf padding;
   4. data    — 1M SIFT-like vectors: 1000 Gaussian clusters rescaled and
                rounded to integers in [0, 255], plus 264 queries;
   5. graph   — a fixture graph (the port's kNN-24 plus 8 uniform random
@@ -38,20 +43,32 @@ Phases, one JSON line each:
                and dedup_gather_int8 on the same queries as phase 6, all
                bit-identical, each path launching its own kernel only;
                recall@10 beside the f32 recall (floor 0.25); one ref_bf16
-               batch on a bf16 copy;
+               batch on a bf16 copy; query_meta runs once per queries
+               tensor (1 + global steps per speedann batch) on both int8
+               kernel backends;
  10. timing  — per kernel its time, its plain version's time and its bound
                on the inputs of a real mid-search call (speedann: 512 × 32;
                topm: 64 × 256; the int8 kernels on the quantized speedann
-               step; sort_pairs on a merge's rows, beside torch.sort of the
-               keys alone);
- 11. profile — one speedann batch under torch.profiler: wall time, device
-               busy time and idle share, the top ops by device time.
+               step with the query side given, as the DistFns give it, and
+               with it computed in the call; sort_pairs on a merge's rows,
+               beside torch.sort of the keys alone); for the dedup kernels
+               their tile, the distinct rows of the grid and of its tiles
+               and the most lanes of one row;
+ 11. profile — one speedann batch under torch.profiler for each of
+               rowgather, dedup_gather and dedup_gather_int8: wall time,
+               device busy time and idle share, kernel launches, the top
+               ops by device time.
+
+``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
+package under DIR: unpack an older commit (``git archive``) and run both
+trees on one card to compare them batch for batch.
 
 The line before the last holds the kernels; the last is
 ``{"ok": true, "device": {...}}``.  With integer coordinates in [0, 255] and
 d = 128 every f32 sum is exact in any order, which is why the f32 backends
 must agree bit for bit; the int8 backends agree because their integer sums
-are exact and their float epilogue is rounded op by op alike.  Needs one CUDA device; exits non-zero on any failure.
+are exact and their float epilogue is rounded op by op alike.  Needs one
+CUDA device; exits non-zero on any failure.
 """
 from __future__ import annotations
 
@@ -181,6 +198,37 @@ def bound(table, ids, metric: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def random_ids(gen, rows: int, b: int, c: int):
+    """(B, C) int32 ids on the card in [0, rows), about 1 in 8 set to
+    padding (>= rows, +inf) and 1 in 64 negative (row 0)."""
+    import torch
+    ids = torch.randint(0, rows, (b, c), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    u = torch.rand((b, c), generator=gen, device="cuda")
+    ids = torch.where(u < 0.125, rows + 7, ids)
+    return torch.where(u > 1 - 1 / 64, -3, ids).to(torch.int32)
+
+
+def dedup_grids(gen, rows: int):
+    """The dedup kernels' hard cases, each a list of (B, C) id grids that
+    are called in a row: one id in every lane; every lane a different row,
+    so each block's 32 rows in its 64-slot hash table probe past each other
+    (with padding and negative ids); two successive calls with different
+    ids; B = C = 1."""
+    import torch
+    collide = torch.randperm(rows, generator=gen, device="cuda")[
+        :512 * 32].reshape(512, 32)
+    collide[:, ::9] = rows + 2
+    collide[:, 1::11] = -4
+    return {"all_duplicate": [torch.full((512, 32), 17, dtype=torch.int32,
+                                         device="cuda")],
+            "collide": [collide.to(torch.int32)],
+            "successive": [random_ids(gen, rows, 512, 32),
+                           random_ids(gen, rows, 512, 32)],
+            "b1c1": [torch.full((1, 1), rows - 1, dtype=torch.int32,
+                                device="cuda")]}
+
+
 def check_kernels(seed: int):
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -193,16 +241,6 @@ def check_kernels(seed: int):
     kern = {"l2dist_rowgather": l2dist_rowgather, "dedupdist": dedupdist,
             "l2dist_dma": l2dist_dma}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def ids_for(rows, b, c):
-        # ids in [0, rows) with about 1 in 8 set to padding (>= rows, +inf)
-        # and 1 in 64 negative (row 0)
-        ids = torch.randint(0, rows, (b, c), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        u = torch.rand((b, c), generator=gen, device="cuda")
-        ids = torch.where(u < 0.125, rows + 7, ids)
-        return torch.where(u > 1 - 1 / 64, -3, ids).to(torch.int32)
-
     tables = {
         "f32_d128": torch.randn((N, 128), generator=gen, device="cuda"),
         "int_d128": torch.randint(0, 256, (N, 128), generator=gen,
@@ -211,6 +249,7 @@ def check_kernels(seed: int):
                                 device="cuda"),
     }
     tables["bf16_d128"] = tables["f32_d128"].to(torch.bfloat16)
+    tables["bf16_d960"] = tables["f32_d960"].to(torch.bfloat16)
     shapes = [(512, 32), (64, 256), (64, 250)]    # 250: ragged for dma
     err = {k: 0.0 for k in kern}
     cases = 0
@@ -219,7 +258,7 @@ def check_kernels(seed: int):
         exact = tname.startswith("int")
         rows, d = table.shape
         for b, c in shapes:
-            ids = ids_for(rows, b, c)
+            ids = random_ids(gen, rows, b, c)
             if tname.startswith("int"):
                 q = torch.randint(0, 256, (b, d), generator=gen,
                                   device="cuda").float()
@@ -263,6 +302,19 @@ def check_kernels(seed: int):
                     raise AssertionError(
                         f"dedupdist != rowgather bit for bit ({tname}, "
                         f"{metric}, ({b},{c}))")
+        for case, grids in dedup_grids(gen, rows).items():
+            qs = [torch.randn((g.shape[0], d), generator=gen, device="cuda")
+                  for g in grids]
+            for metric in ("l2", "ip"):
+                outs = [dedupdist(table, g, q, metric=metric)
+                        for g, q in zip(grids, qs)]
+                for g, q, got in zip(grids, qs, outs):
+                    if not torch.equal(got, l2dist_rowgather(
+                            table, g, q, metric=metric)):
+                        raise AssertionError(
+                            f"dedupdist != rowgather bit for bit ({tname}, "
+                            f"{case}, {metric})")
+                    cases += 1
     del tables
     torch.cuda.empty_cache()
     return err, cases
@@ -291,11 +343,7 @@ def check_quant_sort_kernels(seed: int):
         codes = quantize(x, spec, scales)
         del x
         for b, c in ((512, 32), (64, 256), (64, 250)):
-            ids = torch.randint(0, rows, (b, c), generator=gen,
-                                device="cuda", dtype=torch.int32)
-            u = torch.rand((b, c), generator=gen, device="cuda")
-            ids = torch.where(u < 0.125, rows + 7, ids)
-            ids = torch.where(u > 1 - 1 / 64, -3, ids).to(torch.int32)
+            ids = random_ids(gen, rows, b, c)
             q = torch.randn((b, d), generator=gen, device="cuda")
             q[0] = 0.0                                   # a zero query
             for metric in ("l2", "ip"):
@@ -317,6 +365,19 @@ def check_quant_sort_kernels(seed: int):
                 if not torch.equal(outs[0], outs[1]):
                     raise AssertionError("dedupdist_int8 != "
                                          "int8dist_rowgather bit for bit")
+        for case, grids in dedup_grids(gen, rows).items():
+            qs = [torch.randn((g.shape[0], d), generator=gen, device="cuda")
+                  for g in grids]
+            for metric in ("l2", "ip"):
+                outs = [dedupdist_int8(codes, scales, g, q, metric=metric)
+                        for g, q in zip(grids, qs)]
+                for g, q, got in zip(grids, qs, outs):
+                    if not torch.equal(got, int8dist_rowgather(
+                            codes, scales, g, q, metric=metric)):
+                        raise AssertionError(
+                            f"dedupdist_int8 != int8dist_rowgather bit for "
+                            f"bit (d={d}, {case}, {metric})")
+                    cases += 1
         del codes, scales
     for b, n in ((512, 512), (64, 1024)):
         keys = torch.randint(0, 8, (b, n), generator=gen,
@@ -500,23 +561,48 @@ def replay_merges(seen):
     return len(seen)
 
 
+def tile_stats(ids, n: int, tile: int):
+    """The dedup kernels' view of a (B, C) id grid: the lanes per block,
+    the distinct valid rows of the grid and summed over its tiles (the rows
+    the blocks stage), and the most lanes any one row has."""
+    import torch
+    flat = ids.reshape(-1).long()
+    valid = flat < n
+    rows = flat.clamp(min=0)[valid]
+    tiles = torch.arange(flat.numel(), device=ids.device)[valid] // tile
+    _, counts = torch.unique(rows, return_counts=True)
+    return {"tile": tile, "distinct_rows": int(counts.numel()),
+            "distinct_rows_in_tiles": int(torch.unique(tiles * n + rows)
+                                          .numel()),
+            "max_lanes_per_row": int(counts.max()) if counts.numel() else 0}
+
+
+def kernel_row(name, launches, err, ms, pms, bms, bby, shape):
+    src, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": bby, "library_ms": None,
+            "shape": list(shape)}
+
+
 def time_kernels(index, queries, params, launches, err):
     """Per kernel: its time, its plain version's time and its bound at the
-    speedann step's shape (the kernels line), and at the topm step's."""
+    speedann step's shape (the kernels line), and at the topm step's; for
+    dedupdist also its tiles."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dedup import (dedup_launch, dedup_plan,
-                                           dedupdist)
+    from repro_torch.kernels.dedup import dedupdist, tile_lanes
     from repro_torch.kernels.l2dist import l2dist_dma, l2dist_rowgather
 
     table = index.graph.vectors
+    n, d = table.shape
     calls = {"l2dist_rowgather": (l2dist_rowgather, ref.dist_ref),
              "l2dist_dma": (l2dist_dma, ref.dist_expanded_ref),
              "dedupdist": (dedupdist, ref.dist_ref)}
     rows, shapes = [], {}
     for step, (ids, q) in step_ids(index, queries, params).items():
         bms, bby = bound(table, ids, "l2")
-        n = table.shape[0]
         shapes[step] = {"shape": list(ids.shape),
                         "distinct_rows": int(torch.unique(
                             ids[ids < n]).numel()),
@@ -527,20 +613,11 @@ def time_kernels(index, queries, params, launches, err):
             pms = time_ms(pfn, table, ids, q, "l2")
             shapes[step][kname] = {"ms": ms, "plain_ms": pms}
             if kname == "dedupdist":
-                plan = dedup_plan(ids, n)
-                out = torch.empty(ids.shape, device=ids.device)
-                shapes[step][kname]["kernel_only_ms"] = time_ms(
-                    dedup_launch, table, plan, q, out, "l2")
-                shapes[step][kname]["plan_ms"] = time_ms(dedup_plan, ids, n)
+                shapes[step][kname].update(tile_stats(
+                    ids, n, tile_lanes(d, d * 4, *ids.shape)))
             if step == "speedann":
-                src, replaces = KERNELS[kname]
-                rows.append({"name": kname, "route": "cuda", "source": src,
-                             "replaces": replaces,
-                             "launches": launches[kname],
-                             "max_abs_err": err[kname], "ms": ms,
-                             "plain_ms": pms, "bound_ms": bms,
-                             "bound_by": bby, "library_ms": None,
-                             "shape": list(ids.shape)})
+                rows.append(kernel_row(kname, launches, err, ms, pms, bms,
+                                       bby, ids.shape))
     return rows, shapes
 
 
@@ -573,20 +650,21 @@ def sort_bound(keys):
 
 def time_quant_sort_kernels(qindex, queries, params, launches, err, seen):
     """The int8 kernels on the ids of a mid-search call of the quantized
-    speedann (and topm) search; sort_pairs on the (dist, id) sort of a
-    mid-search frontier merge, beside torch.sort of its keys alone."""
+    speedann (and topm) search, with the query side given as the DistFns
+    give it (and, for comparison, computed in the call); sort_pairs on the
+    (dist, id) sort of a mid-search frontier merge, beside torch.sort of
+    its keys alone."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.bitonic import sort_pairs
-    from repro_torch.kernels.dedup import (dedup_int8_launch, dedup_plan,
-                                           dedupdist_int8)
+    from repro_torch.kernels.dedup import dedupdist_int8, tile_lanes
     from repro_torch.kernels.ref import sort_pairs_ref
     from repro_torch.quant.kernels import (int8dist_ref, int8dist_rowgather,
                                            make_rowgather_int8_dist_fn,
-                                           query_meta, rowgather_int8_launch)
+                                           query_meta)
 
     codes, scales = qindex.graph.codes, qindex.graph.scales
-    n = codes.shape[0]
+    n, d = codes.shape
     rows, shapes = [], {}
     calls = {"int8dist_rowgather": int8dist_rowgather,
              "dedupdist_int8": dedupdist_int8}
@@ -600,29 +678,24 @@ def time_quant_sort_kernels(qindex, queries, params, launches, err, seen):
                             ids[ids < n]).numel()),
                         "valid": int((ids < n).sum()),
                         "bound_ms": bms, "bound_by": bby}
-        pms = time_ms(int8dist_ref, codes, scales, ids, q, "l2")
         qm = query_meta(q)
-        out = torch.empty(ids.shape, device=ids.device)
+        pms = time_ms(int8dist_ref, codes, scales, ids, q, "l2", qmeta=qm)
         shapes[step]["query_meta_ms"] = time_ms(query_meta, q)
         for kname, kfn in calls.items():
-            ms = time_ms(kfn, codes, scales, ids, q, metric="l2")
-            shapes[step][kname] = {"ms": ms, "plain_ms": pms}
+            ms = time_ms(kfn, codes, scales, ids, q, metric="l2", qmeta=qm)
+            with_meta = time_ms(kfn, codes, scales, ids, q, metric="l2")
+            shapes[step][kname] = {"ms": ms, "plain_ms": pms,
+                                   "ms_with_query_meta": with_meta}
             if kname == "dedupdist_int8":
-                plan = dedup_plan(ids, n)
-                shapes[step][kname]["kernel_only_ms"] = time_ms(
-                    dedup_int8_launch, codes, scales, plan, qm, out, "l2")
-            else:
-                shapes[step][kname]["kernel_only_ms"] = time_ms(
-                    rowgather_int8_launch, codes, scales, ids, qm, out, "l2")
+                shapes[step][kname].update(tile_stats(
+                    ids, n, tile_lanes(d, d, *ids.shape)))
             if step == "int8_speedann":
-                src, replaces = KERNELS[kname]
-                rows.append({"name": kname, "route": "cuda", "source": src,
-                             "replaces": replaces,
-                             "launches": launches[kname],
-                             "max_abs_err": err[kname], "ms": ms,
-                             "plain_ms": pms, "bound_ms": bms,
-                             "bound_by": bby, "library_ms": None,
-                             "shape": list(ids.shape)})
+                # "ms" and "plain_ms" with the query side given, as the
+                # DistFns give it; "ms_with_query_meta" computes it in the
+                # call, as PR 12's DistFns did on every call
+                rows.append(dict(kernel_row(kname, launches, err, ms, pms,
+                                            bms, bby, ids.shape),
+                                 ms_with_query_meta=with_meta))
 
     # the sort_pairs calls of one mid-search merge
     f, ids, dists, _ = seen[len(seen) // 2]
@@ -646,26 +719,28 @@ def time_quant_sort_kernels(qindex, queries, params, launches, err, seen):
         "pass1_ms": time_ms(sort_pairs, *(t.contiguous()
                                           for t in sorts[0]))},
         "bound_ms": bms, "bound_by": bby}
-    src, replaces = KERNELS["sort_pairs"]
-    rows.append({"name": "sort_pairs", "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": launches["sort_pairs"],
-                 "max_abs_err": err["sort_pairs"], "ms": ms,
-                 "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
-                 "library_ms": lib, "library": "torch.sort (key only)",
-                 "shape": list(keys.shape)})
+    rows.append(dict(kernel_row("sort_pairs", launches, err, ms, pms, bms,
+                                bby, keys.shape), library_ms=lib,
+                     library="torch.sort (key only)"))
     return rows, shapes
 
 
-def profile_batch(index, queries, params, smi):
-    """One speedann batch of 64 through rowgather: its wall time (median of
-    3 plain runs), then one run under torch.profiler for the summed kernel
-    time, the device's idle share against the plain wall time, and the
-    ops that take the most device time."""
+# backend -> the name of its distance kernel in a profiler trace
+TRACE_KERNEL = {"rowgather": "rowgather_kernel", "dedup_gather": "dedup_kernel",
+                "dedup_gather_int8": "dedup_int8_kernel"}
+
+
+def profile_batch(index, queries, params, smi, backend: str = "rowgather"):
+    """One speedann batch of 64 through ``backend``: its wall time (median
+    of 3 plain runs), then one run under torch.profiler for the summed
+    kernel time, the device's idle share against the plain wall time, the
+    kernel launches, the distance kernel's calls and mean time, and the ops
+    that take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    p = params.with_(backend="rowgather")
+    p = params.with_(backend=backend)
     fn = index.searcher(p)
     walls = []
     for _ in range(3):
@@ -694,35 +769,135 @@ def profile_batch(index, queries, params, smi):
                   if e.device_type == DeviceType.CPU and dev_us(e) > 0),
                  key=dev_us, reverse=True)
     measured = busy_ms > 0
-    dist = [e for e in kernels if "rowgather_kernel" in e.key]
+    dist = [e for e in kernels if TRACE_KERNEL[backend] in e.key]
     dist_ms = sum(dev_us(e) for e in dist) / 1e3
     dist_n = sum(e.count for e in dist)
-    return {"phase": "profile", "backend": "rowgather", "batch": 64,
+    return {"phase": "profile", "backend": backend, "batch": 64,
             "wall_ms": wall, "wall_ms_profiled": wall_profiled,
             "device_busy_ms": busy_ms if measured else "not measured",
             "idle_share": 1 - busy_ms / wall if measured
             else "not measured",
             "kernel_launches": sum(e.count for e in kernels),
-            "rowgather_calls": dist_n,
-            "rowgather_mean_ms": dist_ms / dist_n if dist_n
+            "dist_kernel_calls": dist_n,
+            "dist_kernel_mean_ms": dist_ms / dist_n if dist_n
             else "not measured",
             "top_ops_device_ms": [[e.key, dev_us(e) / 1e3, e.count]
                                   for e in ops[:10]],
             "card": smi}
 
 
+def profile_backends(index, qindex, queries, smi):
+    """Phase 11: :func:`profile_batch` for rowgather and dedup_gather on
+    ``index`` and for dedup_gather_int8 on ``qindex``, each after one warm
+    batch; the rows name the package that ran."""
+    import repro_torch
+    params = smoke_params()
+    qparams = params.with_(rerank_k=30)
+    rows = []
+    for idx, p, be in ((index, params, "rowgather"),
+                       (index, params, "dedup_gather"),
+                       (qindex, qparams, "dedup_gather_int8")):
+        idx.searcher(p.with_(backend=be))(queries[:64])
+        rows.append(dict(profile_batch(idx, queries, p, smi, be),
+                         package=os.path.dirname(repro_torch.__file__)))
+    return rows
+
+
+def smoke_params():
+    """The smoke's search: speedann, k = 10, L = 128, M = 8, W = 8."""
+    from repro_torch.ann import SearchParams
+    return SearchParams(k=10, queue_len=128, m_max=8, num_walkers=8,
+                        algorithm="speedann")
+
+
+def build_index(seed: int):
+    """Phases 4-5: the data and the fixture graph's index, saved and loaded
+    back; (index, queries on the card, facts of both phases)."""
+    import torch
+    from repro_torch.ann import AnnIndex, IndexSpec
+    from repro_torch.core import knn_graph, make_padded_csr
+
+    t0 = time.perf_counter()
+    base, queries_np, rng = make_data(seed, N)
+    data = {"seconds": time.perf_counter() - t0, "n": base.shape[0],
+            "d": base.shape[1], "queries": queries_np.shape[0]}
+    t0 = time.perf_counter()
+    base_dev = torch.from_numpy(base).cuda()
+    knn = knn_graph(base_dev, 24)
+    rand = torch.from_numpy(rng.randint(0, N, size=(N, 8))
+                            ).to("cuda", torch.int32)
+    torch.cuda.synchronize()
+    t_knn = time.perf_counter() - t0
+    graph = make_padded_csr(torch.cat([knn, rand], dim=1), base_dev,
+                            device="cuda")
+    del knn, rand, base_dev
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        path = AnnIndex(IndexSpec(metric="l2", degree=32), graph).save(
+            os.path.join(tmp, "index.npz"))
+        t_save = time.perf_counter() - t1
+        del graph
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        index = AnnIndex.load(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t1
+    graph_facts = {"knn_seconds": t_knn, "save_seconds": t_save,
+                   "load_seconds": t_load, "degree": index.graph.degree,
+                   "device_bytes": index.device_bytes,
+                   "medoid": int(index.graph.medoid)}
+    return (index, torch.from_numpy(queries_np).cuda(),
+            {"data": data, "graph": graph_facts})
+
+
+def count_query_meta(qindex, queries, params):
+    """Per int8 kernel backend: ``query_meta`` calls and global steps of
+    one speedann batch of 64 (the DistFns keep the query side per queries
+    tensor: 1 + global steps)."""
+    from repro_torch.quant import kernels as qk
+    real, out = qk.query_meta, {}
+    for be in INT8_BACKENDS[1:]:
+        calls = []
+
+        def counting(q):
+            calls.append(q.shape)
+            return real(q)
+        qk.query_meta = counting
+        try:
+            r = qindex.search(queries[:64], params.with_(backend=be))
+        finally:
+            qk.query_meta = real
+        out[be] = {"query_meta_calls": len(calls),
+                   "global_steps": int(r.stats.steps.max()),
+                   "query_rows": sorted({s[0] for s in calls})}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile-src", metavar="DIR",
+                    help="only build the index and run phase 11 with the "
+                         "repro_torch package under DIR (an unpacked older "
+                         "commit's src, to compare two versions on one card)")
     args = ap.parse_args()
+    if args.profile_src:                    # before any import of the port
+        sys.path.insert(0, os.path.abspath(args.profile_src))
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on "
               "the card", file=sys.stderr)
         return 2
-    from repro_torch.ann import AnnIndex, IndexSpec, SearchParams
-    from repro_torch.core import knn_graph, make_padded_csr, recall_at_k
+    if args.profile_src:
+        smi = smi_line()
+        index, queries, _ = build_index(args.seed)
+        qindex, _ = quantized_index(index, "int8")
+        for row in profile_backends(index, qindex, queries, smi):
+            emit(row)
+        print(smi, flush=True)
+        return 0
+    from repro_torch.core import recall_at_k
     from repro_torch.kernels import _cuda
 
     t_start = time.perf_counter()
@@ -751,41 +926,10 @@ def main() -> int:
           "tolerance": {"f32": 1e-5, "bf16": 2e-2, "integer": "exact",
                         "int8": "exact", "sort_pairs": "exact"}})
 
-    t0 = time.perf_counter()
-    base, queries_np, rng = make_data(args.seed, N)
-    emit({"phase": "data", "seconds": time.perf_counter() - t0,
-          "n": base.shape[0], "d": base.shape[1],
-          "queries": queries_np.shape[0]})
-
-    t0 = time.perf_counter()
-    base_dev = torch.from_numpy(base).cuda()
-    knn = knn_graph(base_dev, 24)
-    rand = torch.from_numpy(rng.randint(0, N, size=(N, 8))
-                            ).to("cuda", torch.int32)
-    torch.cuda.synchronize()
-    t_knn = time.perf_counter() - t0
-    graph = make_padded_csr(torch.cat([knn, rand], dim=1), base_dev,
-                            device="cuda")
-    del knn, rand, base_dev
-    with tempfile.TemporaryDirectory() as tmp:
-        t1 = time.perf_counter()
-        path = AnnIndex(IndexSpec(metric="l2", degree=32), graph).save(
-            os.path.join(tmp, "index.npz"))
-        t_save = time.perf_counter() - t1
-        del graph
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        index = AnnIndex.load(path)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t1
-    emit({"phase": "graph", "knn_seconds": t_knn, "save_seconds": t_save,
-          "load_seconds": t_load, "degree": index.graph.degree,
-          "device_bytes": index.device_bytes,
-          "medoid": int(index.graph.medoid)})
-
-    queries = torch.from_numpy(queries_np).cuda()
-    params = SearchParams(k=10, queue_len=128, m_max=8, num_walkers=8,
-                          algorithm="speedann")
+    index, queries, facts = build_index(args.seed)
+    emit({"phase": "data", **facts["data"]})
+    emit({"phase": "graph", **facts["graph"]})
+    params = smoke_params()
     t0 = time.perf_counter()
     res, path_launches = {}, {}
     for be in BACKENDS:
@@ -867,7 +1011,13 @@ def main() -> int:
     check_launches({"speedann/ref_bf16": path_launches["speedann/ref_bf16"]})
     del bindex
     recall_bf16 = recall_at_k(bres.ids.cpu(), gt[:64], 10)
+    meta_calls = count_query_meta(qindex, queries, qparams)
+    for be, m in meta_calls.items():
+        if m["query_meta_calls"] != 1 + m["global_steps"]:
+            raise AssertionError(f"{be}: query_meta ran {m} times, not once "
+                                 f"per queries tensor")
     emit({"phase": "quant", "seconds": time.perf_counter() - t0,
+          "query_meta_per_search": meta_calls,
           "int8": quant_info, "bf16": bquant_info, "rerank_k": 30,
           "bit_identical": list(INT8_BACKENDS),
           "launches": {p: path_launches[p] for p in path_launches
@@ -886,9 +1036,11 @@ def main() -> int:
                                              launches, err, seen)
     rows += rows2
     shapes.update(shapes2)
-    del seen, qindex
+    del seen
     emit({"phase": "timing", "shapes": shapes, "card": smi})
-    emit(profile_batch(index, queries, params, smi))
+    for row in profile_backends(index, qindex, queries, smi):
+        emit(row)
+    del qindex
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -36,13 +36,13 @@ ENTRY = {
     "dma": ("dma_launch",
             [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _I, _P]),
     "dedup": ("dedup_launch",
-              [_P, _I, _L, _I, _P, _P, _P, _L, _L, _P, _P, _I, _I, _P]),
+              [_P, _I, _L, _I, _P, _L, _L, _I, _P, _P, _I, _I, _P]),
     "rowgather_int8": ("rowgather_int8_launch",
                        [_P, _L, _I, _P, _P, _L, _L, _P, _P, _P, _P, _I, _I,
                         _P]),
     "dedup_int8": ("dedup_int8_launch",
-                   [_P, _L, _I, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _I,
-                    _I, _P]),
+                   [_P, _L, _I, _P, _P, _L, _L, _I, _P, _P, _P, _P, _I, _I,
+                    _P]),
     "bitonic": ("bitonic_launch", [_P, _P, _P, _P, _P, _P, _L, _I, _P]),
 }
 

@@ -2,21 +2,19 @@
 ``dedup_gather_int8`` backends.
 
 Port of ``repro.kernels.dedup`` (f32/bf16 tables through ``csrc/dedup.cu``,
-int8 codes with per-vector scales through ``csrc/dedup_int8.cu``).  A hot
-vertex on several queries' (or walkers') frontiers is gathered ONCE per
-step:
-
-  1. **dedup** (plain torch, as in the reference): a stable sort of the
-     flattened (B·C,) ids makes equal ids contiguous runs; ids >= N fold
-     onto the sentinel N first.
-  2. **gather + reduce** (``csrc/dedup.cu``): one block per distinct id
-     stages the row in shared memory once and reduces it against exactly
-     the lanes of its run, writing ``out[b, c]`` directly.
+int8 codes with per-vector scales through ``csrc/dedup_int8.cu``).  A vertex
+on several walkers' (or queries') frontiers is gathered once per tile of
+lanes: each call is ONE launch on the (B, C) ids as they are.  A block takes
+:func:`tile_lanes` consecutive flat lanes, dedups their ids in a shared-memory
+hash table, stages each distinct row once and reduces every lane against it
+(``csrc/dedup_tile.cuh``); duplicates across tiles meet in the L2.
 
 The per-pair reduction is the one ``rowgather`` (``rowgather_int8``) uses,
 so the two kernels agree bit for bit on the card.  For CPU tensors
 :func:`dedupdist` returns the plain version (``kernels.ref.dist_ref``) and
 :func:`dedupdist_int8` its own (``quant.kernels.int8dist_ref``).
+:func:`unique_ids_inverse` is the port of the reference's sort/unique pass;
+no kernel path uses it.
 """
 from __future__ import annotations
 
@@ -29,18 +27,15 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.registry import pad_ids_to_tile, register_backend
 from repro_torch.quant import kernels as _qk
 
-TILE = 8
-
-
-def _sorted_runs(ids: torch.Tensor, n_nodes: int):
-    """Stable sort of the flattened ids (padding folded onto ``n_nodes``):
-    (sorted_ids, order, first-of-run mask, run index per sorted slot)."""
-    flat = torch.where(ids < n_nodes, ids, n_nodes).to(torch.int32)
-    sorted_ids, order = torch.sort(flat.reshape(-1), stable=True)
-    first = torch.ones_like(sorted_ids, dtype=torch.bool)
-    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
-    rank = torch.cumsum(first, dim=0) - 1
-    return sorted_ids, order, first, rank
+TILE = 8                      # unique_ids_inverse's sentinel padding
+# lanes per block, at most (kMaxTile in csrc/dedup_tile.cuh): at the speedann
+# (512 x 32) step on an H100, 32-lane tiles ran faster than 64- or 128-lane
+# ones (more blocks in flight; PERF.md) though they stage ~10% more rows
+TILE_LANES = 32
+# dynamic shared memory a block may take so that two fit on one SM (228 KB
+# each), and the most one block may take beside its static table
+SMEM_BUDGET = 96 * 1024
+SMEM_MAX = 227 * 1024 - 4 * 1024
 
 
 def unique_ids_inverse(ids: torch.Tensor, n_nodes: int, tile: int = TILE
@@ -53,7 +48,11 @@ def unique_ids_inverse(ids: torch.Tensor, n_nodes: int, tile: int = TILE
     the number of real (non-sentinel) distinct ids."""
     bsz, c = ids.shape
     t = bsz * c
-    sorted_ids, order, first, rank = _sorted_runs(ids, n_nodes)
+    flat = torch.where(ids < n_nodes, ids, n_nodes).to(torch.int32)
+    sorted_ids, order = torch.sort(flat.reshape(-1), stable=True)
+    first = torch.ones_like(sorted_ids, dtype=torch.bool)
+    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    rank = torch.cumsum(first, dim=0) - 1
     uniq = torch.full((t,), n_nodes, dtype=torch.int32, device=ids.device)
     uniq.scatter_(0, rank, sorted_ids)
     inv = torch.zeros((t,), dtype=torch.int32, device=ids.device)
@@ -62,82 +61,75 @@ def unique_ids_inverse(ids: torch.Tensor, n_nodes: int, tile: int = TILE
     return pad_ids_to_tile(uniq, tile, n_nodes), inv.reshape(bsz, c), n_uniq
 
 
+def tile_lanes(d: int, row_bytes: int, b: int, c: int) -> int:
+    """Lanes per block for a (B, C) grid over rows of ``row_bytes``: the
+    largest power of two up to :data:`TILE_LANES` whose distinct rows and
+    query rows (at most 4·d + 8 bytes each) fit :data:`SMEM_BUDGET`; 1 when
+    none does.  Raises ``ValueError`` when one lane's row and query do not
+    fit a block."""
+    def smem(tile):
+        nq = min(b, (tile + c - 2) // c + 1)
+        return nq * (4 * d + 8) + tile * (row_bytes + 4) + 16
+    if smem(1) > SMEM_MAX:
+        raise ValueError(f"dedup kernels: d = {d} leaves no room for one row "
+                         f"and its query in a block's shared memory")
+    tile = 1
+    while tile * 2 <= TILE_LANES and smem(tile * 2) <= SMEM_BUDGET:
+        tile *= 2
+    return tile
+
+
 def dedupdist(table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
               *, metric: str = "l2") -> torch.Tensor:
     """(N,d) table, (B,C) ids, (B,d) queries -> (B,C) f32 distances with
-    each distinct candidate row gathered once for the whole batch.  Same
-    contract as ``l2dist_rowgather`` and bit-identical to it."""
+    each distinct candidate row of a tile of :func:`tile_lanes` lanes
+    gathered once.  Same contract as
+    ``l2dist_rowgather`` and bit-identical to it."""
     _cuda.check_inputs("dedupdist", table, ids, queries)
     if metric not in ("l2", "ip", "cosine"):
         raise ValueError(f"unknown metric {metric!r}")
+    n, d = table.shape
+    tile = tile_lanes(d, d * table.element_size(), *ids.shape)
     if table.device.type == "cpu":
         return _ref.dist_ref(table, ids, queries, metric)
     out = torch.empty(ids.shape, dtype=torch.float32, device=table.device)
-    if ids.numel():
-        dedup_launch(table, dedup_plan(ids, table.shape[0]), queries, out,
-                     metric)
+    if out.numel():
+        _cuda.launch("dedup", "dedupdist", table,
+                     int(table.dtype == torch.bfloat16), n, d, ids,
+                     ids.shape[0], ids.shape[1], tile, queries, out,
+                     int(metric != "l2"), _cuda.vec_ok(table, queries))
     return out
-
-
-def dedup_plan(ids: torch.Tensor, n_nodes: int):
-    """The kernel's inputs from a (B, C) id grid: (sorted_ids, run_start,
-    order) as int32 tensors, plus C.  ``run_start[u]`` is the first sorted
-    slot of the u-th distinct id; slots past the last distinct id (and
-    ``run_start[B·C]``) hold B·C, i.e. empty runs."""
-    t = ids.numel()
-    sorted_ids, order, _, rank = _sorted_runs(ids, n_nodes)
-    run_start = torch.full((t + 1,), t, dtype=torch.int32, device=ids.device)
-    run_start.scatter_reduce_(
-        0, rank, torch.arange(t, dtype=torch.int32, device=ids.device),
-        reduce="amin")
-    return sorted_ids, run_start, order.to(torch.int32), ids.shape[1]
-
-
-def dedup_launch(table: torch.Tensor, plan, queries: torch.Tensor,
-                 out: torch.Tensor, metric: str) -> None:
-    """Launch ``csrc/dedup.cu`` on a :func:`dedup_plan` into ``out``."""
-    sorted_ids, run_start, order, c = plan
-    _cuda.launch("dedup", "dedupdist",
-                 table, int(table.dtype == torch.bfloat16), table.shape[0],
-                 table.shape[1], sorted_ids, run_start, order,
-                 sorted_ids.numel(), c, queries, out, int(metric != "l2"),
-                 _cuda.vec_ok(table, queries))
 
 
 def dedupdist_int8(codes: torch.Tensor, scales: torch.Tensor,
                    ids: torch.Tensor, queries: torch.Tensor, *,
-                   metric: str = "l2") -> torch.Tensor:
+                   metric: str = "l2", qmeta=None) -> torch.Tensor:
     """int8 variant of :func:`dedupdist`: (N, d) int8 codes with (N, 1)
-    per-vector scales; the distinct code rows of the batch are gathered once.
-    Same contract as ``quant.kernels.int8dist_rowgather`` and bit-identical
-    to it and to ``ref_int8``."""
+    per-vector scales; the distinct code rows of a tile are gathered once.
+    ``qmeta`` is ``quant.kernels.query_meta(queries)`` when the caller has
+    it (computed here otherwise).  Same contract as
+    ``quant.kernels.int8dist_rowgather`` and bit-identical to it and to
+    ``ref_int8``."""
     _qk._check_per_vector("dedupdist_int8", codes, scales)
     _cuda.check_int8_inputs("dedupdist_int8", codes, scales, ids, queries)
     kmetric = _qk._kmetric(metric)
+    n, d = codes.shape
+    tile = tile_lanes(d, d, *ids.shape)
     if codes.device.type == "cpu":
-        return _qk.int8dist_ref(codes, scales, ids, queries, metric)
+        return _qk.int8dist_ref(codes, scales, ids, queries, metric,
+                                qmeta=qmeta)
+    qc, qs, q2 = _qk.query_side(queries, qmeta)
     out = torch.empty(ids.shape, dtype=torch.float32, device=codes.device)
-    if ids.numel():
-        dedup_int8_launch(codes, scales, dedup_plan(ids, codes.shape[0]),
-                          _qk.query_meta(queries), out, kmetric)
+    if out.numel():
+        _cuda.launch("dedup_int8", "dedupdist_int8", codes, n, d, scales,
+                     ids, ids.shape[0], ids.shape[1], tile, qc, qs, q2, out,
+                     int(kmetric == "ip"), _cuda.int8_vec_ok(codes, qc))
     return out
-
-
-def dedup_int8_launch(codes: torch.Tensor, scales: torch.Tensor, plan,
-                      qmeta, out: torch.Tensor, metric: str) -> None:
-    """Launch ``csrc/dedup_int8.cu`` on a :func:`dedup_plan` and a
-    ``query_meta`` into ``out``."""
-    sorted_ids, run_start, order, c = plan
-    qc, qs, q2 = qmeta
-    _cuda.launch("dedup_int8", "dedupdist_int8",
-                 codes, codes.shape[0], codes.shape[1], scales, sorted_ids,
-                 run_start, order, sorted_ids.numel(), c, qc, qs, q2, out,
-                 int(metric != "l2"), _cuda.int8_vec_ok(codes, qc))
 
 
 def make_dedup_dist_fn(metric: str = "l2"):
     """Batch-major dedup DistFn: the step's whole (B, M·R) candidate grid
-    in ONE unique-row gather launch."""
+    in ONE launch."""
     def dist_fn(graph, active_ids, nbr_ids, queries):
         b, m, r = nbr_ids.shape
         d = dedupdist(graph.vectors, nbr_ids.reshape(b, m * r),
@@ -147,8 +139,12 @@ def make_dedup_dist_fn(metric: str = "l2"):
 
 
 def make_dedup_int8_dist_fn(metric: str = "l2"):
-    """Batch-major int8 dedup DistFn: the step's distinct code rows in ONE
-    launch.  Per-vector scales only, like ``rowgather_int8``."""
+    """Batch-major int8 dedup DistFn: the step's grid in ONE launch, with
+    the query side computed once per queries tensor (a search hands the
+    same tensor to every step that shares it).  Per-vector scales only,
+    like ``rowgather_int8``."""
+    qmeta = _qk.QueryMetaMemo()
+
     def dist_fn(graph, active_ids, nbr_ids, queries):
         codes, scales = _qk.require_codes(graph, "int8")
         if scales.shape[0] == 1:
@@ -158,7 +154,8 @@ def make_dedup_int8_dist_fn(metric: str = "l2"):
         b, m, r = nbr_ids.shape
         d = dedupdist_int8(codes, scales,
                            nbr_ids.reshape(b, m * r).contiguous(),
-                           queries.contiguous(), metric=metric)
+                           queries.contiguous(), metric=metric,
+                           qmeta=qmeta(queries))
         return d.reshape(b, m, r)
     return dist_fn
 

@@ -15,7 +15,9 @@ call per global step) that read the index's quantized table
 "l2" is ``max(s²·‖c‖² − 2·s·s_q·(c·c_q) + ‖q‖², 0)`` with the exact f32
 query norm, "ip"/"cosine" is ``−s·s_q·(c·c_q)``; ids >= N give +inf.  The
 query side (codes, scale, ‖q‖²) comes from ONE helper, :func:`query_meta`,
-for the plain version and both kernels, so every backend sees the same bits.
+for the plain version and both kernels, so every backend sees the same bits;
+the kernel DistFns keep it per queries tensor (:class:`QueryMetaMemo`; per
+call for tensors made under ``torch.inference_mode()``).
 The integer sums are exact in any order and the float epilogue is rounded
 op by op in the reference's order, so the kernels equal the plain version
 bit for bit.
@@ -67,6 +69,44 @@ def query_meta(queries: torch.Tensor
     return qc.contiguous(), qs.contiguous(), q2.contiguous()
 
 
+def query_side(queries: torch.Tensor, qmeta=None):
+    """``qmeta`` (a :func:`query_meta` of ``queries`` the caller kept) after
+    a check of its shape and device, or a fresh :func:`query_meta`."""
+    if qmeta is None:
+        return query_meta(queries)
+    qc = qmeta[0]
+    if qc.shape != queries.shape or qc.device != queries.device:
+        raise ValueError(f"qmeta codes {tuple(qc.shape)} on {qc.device} do "
+                         f"not match queries {tuple(queries.shape)} on "
+                         f"{queries.device}")
+    return qmeta
+
+
+class QueryMetaMemo:
+    """``queries -> query_meta(queries)``, recomputed only for another
+    tensor or for the same one changed in place.  The DistFns hold one: a
+    search hands every step the same queries tensor (speedann a new one per
+    global step), so the query side is quantized once per tensor, not once
+    per call.  The last tensor is held, so its memory cannot be reused by
+    another tensor at the same address, and its ``_version`` counts its
+    in-place writes.  A tensor made under ``torch.inference_mode()`` has no
+    version counter, so nothing tells that it was not changed in place: its
+    query side is computed on every call."""
+
+    def __init__(self):
+        self._queries = None
+        self._version = -1
+        self._meta = None
+
+    def __call__(self, queries: torch.Tensor):
+        if queries.is_inference():
+            return query_meta(queries)
+        if queries is not self._queries or queries._version != self._version:
+            self._meta = query_meta(queries)
+            self._queries, self._version = queries, queries._version
+        return self._meta
+
+
 def int8_epilogue(acc: torch.Tensor, rn2: torch.Tensor, s: torch.Tensor,
                   qs: torch.Tensor, q2: torch.Tensor,
                   kmetric: str) -> torch.Tensor:
@@ -81,17 +121,18 @@ def int8_epilogue(acc: torch.Tensor, rn2: torch.Tensor, s: torch.Tensor,
 
 def int8dist_ref(codes: torch.Tensor, scales: torch.Tensor,
                  ids: torch.Tensor, queries: torch.Tensor,
-                 metric: str = "l2") -> torch.Tensor:
+                 metric: str = "l2", *, qmeta=None) -> torch.Tensor:
     """Plain version of the int8 kernels: (N, d) int8 codes, (N, 1)
     per-vector scales, (B, C) int32 ids, (B, d) f32 queries -> (B, C) f32.
     Ids >= N give +inf; negative ids read row 0, as the kernels do.  The
     int32 dot is an elementwise product summed over d (exact: no int32
-    overflow by ``codec.query_levels``)."""
+    overflow by ``codec.query_levels``).  ``qmeta``: a kept
+    :func:`query_meta` of ``queries``."""
     kmetric = _kmetric(metric)
     n = codes.shape[0]
     safe = ids.long().clamp(0, n - 1)
     rows = codes[safe].to(torch.int32)                     # (B, C, d)
-    qc, qs, q2 = query_meta(queries)
+    qc, qs, q2 = query_side(queries, qmeta)
     acc = torch.sum(rows * qc[:, None, :], dim=-1, dtype=torch.int32)
     rn2 = torch.sum(rows * rows, dim=-1, dtype=torch.int32)
     d = int8_epilogue(acc, rn2, scales[safe, 0], qs, q2, kmetric)
@@ -109,32 +150,25 @@ def _check_per_vector(kernel: str, codes: torch.Tensor,
 
 def int8dist_rowgather(codes: torch.Tensor, scales: torch.Tensor,
                        ids: torch.Tensor, queries: torch.Tensor, *,
-                       metric: str = "l2") -> torch.Tensor:
+                       metric: str = "l2", qmeta=None) -> torch.Tensor:
     """One warp per candidate over int8 code rows; see
-    ``csrc/rowgather_int8.cu``.  CPU tensors take :func:`int8dist_ref`."""
+    ``csrc/rowgather_int8.cu``.  ``qmeta``: a kept :func:`query_meta` of
+    ``queries`` (computed here otherwise).  CPU tensors take
+    :func:`int8dist_ref`."""
     _check_per_vector("int8dist_rowgather", codes, scales)
     _cuda.check_int8_inputs("int8dist_rowgather", codes, scales, ids,
                             queries)
     kmetric = _kmetric(metric)
     if codes.device.type == "cpu":
-        return int8dist_ref(codes, scales, ids, queries, metric)
+        return int8dist_ref(codes, scales, ids, queries, metric, qmeta=qmeta)
+    qc, qs, q2 = query_side(queries, qmeta)
     out = torch.empty(ids.shape, dtype=torch.float32, device=codes.device)
     if out.numel():
-        rowgather_int8_launch(codes, scales, ids, query_meta(queries), out,
-                              kmetric)
+        _cuda.launch("rowgather_int8", "int8dist_rowgather",
+                     codes, codes.shape[0], codes.shape[1], scales, ids,
+                     ids.shape[0], ids.shape[1], qc, qs, q2, out,
+                     int(kmetric == "ip"), _cuda.int8_vec_ok(codes, qc))
     return out
-
-
-def rowgather_int8_launch(codes: torch.Tensor, scales: torch.Tensor,
-                          ids: torch.Tensor, qmeta, out: torch.Tensor,
-                          kmetric: str) -> None:
-    """Launch ``csrc/rowgather_int8.cu`` on a :func:`query_meta` into
-    ``out``."""
-    qc, qs, q2 = qmeta
-    _cuda.launch("rowgather_int8", "int8dist_rowgather",
-                 codes, codes.shape[0], codes.shape[1], scales, ids,
-                 ids.shape[0], ids.shape[1], qc, qs, q2, out,
-                 int(kmetric == "ip"), _cuda.int8_vec_ok(codes, qc))
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +214,10 @@ def make_bf16_dist_fn(metric: str = "l2"):
 
 def make_rowgather_int8_dist_fn(metric: str = "l2"):
     """Batch-major ``rowgather_int8`` DistFn: the whole (B, M·R) candidate
-    grid in ONE kernel launch."""
+    grid in ONE kernel launch, the query side once per queries tensor
+    (:class:`QueryMetaMemo`)."""
+    qmeta = QueryMetaMemo()
+
     def dist_fn(graph, active_ids, nbr_ids, queries):
         codes, scales = require_codes(graph, "int8")
         if scales.shape[0] == 1:
@@ -190,7 +227,8 @@ def make_rowgather_int8_dist_fn(metric: str = "l2"):
         b, m, r = nbr_ids.shape
         d = int8dist_rowgather(codes, scales,
                                nbr_ids.reshape(b, m * r).contiguous(),
-                               queries.contiguous(), metric=metric)
+                               queries.contiguous(), metric=metric,
+                               qmeta=qmeta(queries))
         return d.reshape(b, m, r)
     return dist_fn
 

@@ -23,7 +23,7 @@ from repro_torch.core.speedann import search_speedann_batch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import ref
 from repro_torch.kernels.bitonic import sort_pairs
-from repro_torch.kernels.dedup import dedupdist, dedupdist_int8
+from repro_torch.kernels.dedup import dedupdist, dedupdist_int8, tile_lanes
 from repro_torch.kernels.l2dist import l2dist_dma, l2dist_rowgather
 from repro_torch.kernels.ops import topl_merge
 from repro_torch.kernels.ref import sort_pairs_ref
@@ -99,12 +99,66 @@ def test_negative_ids_read_row_zero(cuda_device, kernel):
                                         "l2")[:, 1])
 
 
+def _dedup_ids(case, n, b, c, seed):
+    """(B, C) int32 ids on the card for a dedup case: walkers sharing
+    candidates, one id everywhere, every lane a different row (each block's
+    up to 32 rows in its 64-slot hash table probe past each other; with
+    padding and negative ids), or 1 x 1."""
+    rng = np.random.RandomState(seed)
+    if case == "walkers":
+        ids = rng.randint(-3, n + 4, size=(b, c))
+        ids[1::2] = ids[0::2]
+    elif case == "all_duplicate":
+        ids = np.full((b, c), 17)
+    elif case == "collide":
+        ids = rng.permutation(n)[:b * c].reshape(b, c)
+        ids[:, ::9] = n + 2
+        ids[:, 1::11] = -4
+    elif case == "b1c1":
+        ids = np.array([[n - 1]])
+    else:
+        raise ValueError(case)
+    return torch.from_numpy(ids.astype(np.int32)).cuda()
+
+
+DEDUP_CASES = ["walkers", "all_duplicate", "collide", "successive", "b1c1"]
+
+
+@pytest.mark.parametrize("case", DEDUP_CASES)
+@pytest.mark.parametrize("d", [128, 960])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_dedup_bitwise_equals_rowgather(cuda_device, metric):
-    table, ids, q = _inputs(4000, 128, 512, 32, seed=13)
-    ids[1::2] = ids[0::2]          # walkers sharing candidates
-    assert torch.equal(dedupdist(table, ids, q, metric=metric),
-                       l2dist_rowgather(table, ids, q, metric=metric))
+def test_dedup_bitwise_equals_rowgather(cuda_device, case, d, dtype, metric):
+    n = 50_000
+    table, _, _ = _inputs(n, d, 1, 1, seed=13, dtype=dtype)
+    grids = ([_dedup_ids("walkers", n, 512, 32, s) for s in (1, 2)]
+             if case == "successive" else [_dedup_ids(case, n, 512, 32, 3)])
+    qs = [torch.randn((g.shape[0], d), device="cuda") for g in grids]
+    before = _cuda.LAUNCHES["dedupdist"]
+    got = [dedupdist(table, g, q, metric=metric) for g, q in zip(grids, qs)]
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["dedupdist"] == before + len(grids)
+    for g, q, out in zip(grids, qs, got):
+        assert torch.equal(out, l2dist_rowgather(table, g, q, metric=metric))
+        assert bool(torch.isinf(out[g >= n]).all())
+
+
+@pytest.mark.parametrize("tile,d,d8", [(32, 128, 128), (16, 960, 3072),
+                                       (1, 8192, 12288)])
+def test_dedup_tile_sizes_equal_rowgather(cuda_device, tile, d, d8):
+    # the tile follows from d (kernels.dedup.tile_lanes); 63 x 250 lanes
+    # leave a ragged last tile
+    table, ids, q = _inputs(3000, d, 63, 250, seed=15)
+    ids[1::2] = ids[:-1:2]
+    codes, scales, ids8, q8 = _int8_inputs(3000, d8, 63, 250, seed=16)
+    assert tile_lanes(d, 4 * d, 63, 250) == tile
+    assert tile_lanes(d8, d8, 63, 250) == tile
+    for metric in ("l2", "ip"):
+        assert torch.equal(dedupdist(table, ids, q, metric=metric),
+                           l2dist_rowgather(table, ids, q, metric=metric))
+        assert torch.equal(
+            dedupdist_int8(codes, scales, ids8, q8, metric=metric),
+            int8dist_rowgather(codes, scales, ids8, q8, metric=metric))
 
 
 @pytest.mark.parametrize("backend", ["rowgather", "dma", "dedup_gather"])
@@ -168,19 +222,28 @@ def test_int8_kernel_bit_identical_to_plain(cuda_device, kernel, n, d, b, c,
         codes, scales, torch.zeros_like(ids), q, metric)[ids < 0])
 
 
-@pytest.mark.parametrize("overlap", ["all_duplicate", "no_overlap"])
-def test_dedup_int8_overlap_extremes(cuda_device, overlap):
-    codes, scales, ids, q = _int8_inputs(6000, 128, 64, 64, seed=21)
-    if overlap == "all_duplicate":
-        ids = torch.full_like(ids, 17)
+@pytest.mark.parametrize("overlap", ["all_duplicate", "no_overlap",
+                                     "collide", "successive", "b1c1"])
+@pytest.mark.parametrize("d", [128, 960])
+def test_dedup_int8_overlap_extremes(cuda_device, overlap, d):
+    n = 50_000
+    codes, scales, ids, q = _int8_inputs(n, d, 64, 64, seed=21)
+    if overlap == "no_overlap":
+        grids = [torch.randperm(n, device="cuda")[:64 * 64].reshape(
+            64, 64).to(torch.int32)]
+    elif overlap == "successive":
+        grids = [ids, _dedup_ids("walkers", n, 64, 64, 22)]
     else:
-        ids = torch.randperm(6000, device="cuda")[:64 * 64].reshape(
-            64, 64).to(torch.int32)
+        grids = [_dedup_ids(overlap, n, 64, 64, 23)]
     for metric in ("l2", "ip"):
-        got = dedupdist_int8(codes, scales, ids, q, metric=metric)
-        assert torch.equal(got, int8dist_rowgather(codes, scales, ids, q,
-                                                   metric=metric))
-        assert torch.equal(got, int8dist_ref(codes, scales, ids, q, metric))
+        got = [dedupdist_int8(codes, scales, g, q[:g.shape[0]].contiguous(),
+                              metric=metric) for g in grids]
+        for g, out in zip(grids, got):
+            qg = q[:g.shape[0]].contiguous()
+            assert torch.equal(out, int8dist_rowgather(codes, scales, g, qg,
+                                                       metric=metric))
+            assert torch.equal(out, int8dist_ref(codes, scales, g, qg,
+                                                 metric))
 
 
 @pytest.mark.parametrize("b,n", [(3, 1), (4, 2), (5, 8), (64, 1024),
@@ -241,6 +304,36 @@ def test_codec_on_card_equals_cpu(cuda_device):
                            quantize(x, spec, s_cpu))
     for got, want in zip(quantize_query(x.cuda()), quantize_query(x)):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("backend", ["dedup_gather", "dedup_gather_int8"])
+@pytest.mark.parametrize("walkers", [1, 8])
+def test_dedup_speedann_on_card_equals_plain_search_on_cpu(cuda_device,
+                                                           backend, walkers):
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randint(0, 256, size=(3000, 32))
+                         .astype(np.float32))
+    q = torch.from_numpy(rng.randint(0, 256, size=(24, 32))
+                         .astype(np.float32))
+    nbrs = torch.cat([knn_graph(x, 12), torch.from_numpy(
+        rng.randint(0, 3000, size=(3000, 4)).astype(np.int32))], dim=1)
+    cfg = SearchConfig(k=10, queue_len=32, m_max=4, num_walkers=walkers,
+                       dist_backend=backend)
+    plain = "ref"
+    graphs = [make_padded_csr(nbrs, x, device=dev) for dev in ("cpu", "cuda")]
+    if backend.endswith("int8"):
+        plain = "ref_int8"
+        graphs = [quantize_graph(g, QuantSpec("int8")) for g in graphs]
+    want = search_speedann_batch(graphs[0], q,
+                                 cfg.with_(dist_backend=plain))
+    kernel = "dedupdist_int8" if backend.endswith("int8") else "dedupdist"
+    before = _cuda.LAUNCHES[kernel]
+    got = search_speedann_batch(graphs[1], q.cuda(), cfg)
+    assert _cuda.LAUNCHES[kernel] > before
+    for w, g in zip(want[:2], got[:2]):
+        assert torch.equal(w, g.cpu())
+    for w, g in zip(want[2], got[2]):
+        assert torch.equal(w, g.cpu())
 
 
 @pytest.mark.parametrize("backend", ["rowgather_int8", "dedup_gather_int8"])
