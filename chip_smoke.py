@@ -10,8 +10,9 @@ Phases, one JSON line each:
   3. kernels — each kernel against its plain torch version: the f32
                gather-distance kernels at the search path's shapes (N = 1M,
                d = 128; B·W = 512 × C = 32 and B = 64 × C = 256), plus
-               d = 960, a bf16 table, padding ids, a ragged C for dma, and
-               integer data held to exact equality; the int8 kernels bit for
+               d = 960, a bf16 table, padding ids, a ragged C, C = 1000
+               (dma's chunked runs), and integer data held to exact
+               equality, dma also to rowgather; the int8 kernels bit for
                bit at the same shapes and d = 960, with padding, negative ids
                and a zero query; both dedup kernels bit for bit against
                rowgather on their hard cases (f32, bf16 and int8, d = 128
@@ -46,22 +47,27 @@ Phases, one JSON line each:
                batch on a bf16 copy; query_meta runs once per queries
                tensor (1 + global steps per speedann batch) on both int8
                kernel backends;
- 10. timing  — per kernel its time, its plain version's time and its bound
-               on the inputs of a real mid-search call (speedann: 512 × 32;
-               topm: 64 × 256; the int8 kernels on the quantized speedann
-               step with the query side given, as the DistFns give it, and
-               with it computed in the call; sort_pairs on a merge's rows,
+ 10. timing  — the launch floor (the time of one empty kernel, read the
+               same way) and per kernel its time, its plain version's time
+               and its bound on the inputs of a real mid-search call
+               (speedann: 512 × 32; topm: 64 × 256; the int8 kernels on
+               the quantized speedann step with the query side given, as
+               the DistFns give it, and with it computed in the call;
+               sort_pairs on a merge's rows,
                beside torch.sort of the keys alone); for the dedup kernels
                their tile, the distinct rows of the grid and of its tiles
                and the most lanes of one row;
  11. profile — one speedann batch under torch.profiler for each of
-               rowgather, dedup_gather and dedup_gather_int8: wall time,
-               device busy time and idle share, kernel launches, the top
-               ops by device time.
+               rowgather, dma, dedup_gather, rowgather_int8 and
+               dedup_gather_int8: wall time, device busy time and idle
+               share, kernel launches, the distance kernel's calls and mean
+               time, the top ops by device time.
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
-package under DIR: unpack an older commit (``git archive``) and run both
-trees on one card to compare them batch for batch.
+package under DIR, and times the l2dist_dma and int8dist_rowgather kernels
+at the speedann and topm steps beside the launch floor: unpack an older
+commit (``git archive``) and run both trees on one card to compare them
+batch for batch and kernel for kernel.
 
 The line before the last holds the kernels; the last is
 ``{"ok": true, "device": {...}}``.  With integer coordinates in [0, 255] and
@@ -250,7 +256,8 @@ def check_kernels(seed: int):
     }
     tables["bf16_d128"] = tables["f32_d128"].to(torch.bfloat16)
     tables["bf16_d960"] = tables["f32_d960"].to(torch.bfloat16)
-    shapes = [(512, 32), (64, 256), (64, 250)]    # 250: ragged for dma
+    # 250: ragged; 300 x 1000: dma copies its runs in chunks
+    shapes = [(512, 32), (64, 256), (64, 250), (300, 1000)]
     err = {k: 0.0 for k in kern}
     cases = 0
     for tname, table in tables.items():
@@ -302,6 +309,11 @@ def check_kernels(seed: int):
                     raise AssertionError(
                         f"dedupdist != rowgather bit for bit ({tname}, "
                         f"{metric}, ({b},{c}))")
+                if exact and not torch.equal(outs["l2dist_rowgather"],
+                                             outs["l2dist_dma"]):
+                    raise AssertionError(
+                        f"l2dist_dma != rowgather on integer data ({metric}, "
+                        f"({b},{c}))")
         for case, grids in dedup_grids(gen, rows).items():
             qs = [torch.randn((g.shape[0], d), generator=gen, device="cuda")
                   for g in grids]
@@ -342,7 +354,7 @@ def check_quant_sort_kernels(seed: int):
         scales = fit_scales(x, spec)
         codes = quantize(x, spec, scales)
         del x
-        for b, c in ((512, 32), (64, 256), (64, 250)):
+        for b, c in ((512, 32), (64, 256), (64, 250), (300, 1000)):
             ids = random_ids(gen, rows, b, c)
             q = torch.randn((b, d), generator=gen, device="cuda")
             q[0] = 0.0                                   # a zero query
@@ -577,16 +589,25 @@ def tile_stats(ids, n: int, tile: int):
             "max_lanes_per_row": int(counts.max()) if counts.numel() else 0}
 
 
-def kernel_row(name, launches, err, ms, pms, bms, bby, shape):
+def launch_floor_ms() -> float:
+    """:func:`time_ms` of one empty kernel: the least any kernel reads."""
+    import torch
+    return time_ms(torch.cuda._sleep, 0)
+
+
+def kernel_row(name, launches, err, ms, pms, bms, bby, shape, floor):
+    """A row of the kernels line; the kernel's time is read against
+    ``bound_or_floor_ms``, the larger of its bound and the launch floor."""
     src, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": bby, "library_ms": None,
+            "launch_floor_ms": floor, "bound_or_floor_ms": max(bms, floor),
             "shape": list(shape)}
 
 
-def time_kernels(index, queries, params, launches, err):
+def time_kernels(index, queries, params, launches, err, floor):
     """Per kernel: its time, its plain version's time and its bound at the
     speedann step's shape (the kernels line), and at the topm step's; for
     dedupdist also its tiles."""
@@ -617,7 +638,7 @@ def time_kernels(index, queries, params, launches, err):
                     ids, n, tile_lanes(d, d * 4, *ids.shape)))
             if step == "speedann":
                 rows.append(kernel_row(kname, launches, err, ms, pms, bms,
-                                       bby, ids.shape))
+                                       bby, ids.shape, floor))
     return rows, shapes
 
 
@@ -648,7 +669,8 @@ def sort_bound(keys):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_quant_sort_kernels(qindex, queries, params, launches, err, seen):
+def time_quant_sort_kernels(qindex, queries, params, launches, err, seen,
+                            floor):
     """The int8 kernels on the ids of a mid-search call of the quantized
     speedann (and topm) search, with the query side given as the DistFns
     give it (and, for comparison, computed in the call); sort_pairs on the
@@ -694,7 +716,7 @@ def time_quant_sort_kernels(qindex, queries, params, launches, err, seen):
                 # DistFns give it; "ms_with_query_meta" computes it in the
                 # call, as PR 12's DistFns did on every call
                 rows.append(dict(kernel_row(kname, launches, err, ms, pms,
-                                            bms, bby, ids.shape),
+                                            bms, bby, ids.shape, floor),
                                  ms_with_query_meta=with_meta))
 
     # the sort_pairs calls of one mid-search merge
@@ -720,13 +742,15 @@ def time_quant_sort_kernels(qindex, queries, params, launches, err, seen):
                                           for t in sorts[0]))},
         "bound_ms": bms, "bound_by": bby}
     rows.append(dict(kernel_row("sort_pairs", launches, err, ms, pms, bms,
-                                bby, keys.shape), library_ms=lib,
+                                bby, keys.shape, floor), library_ms=lib,
                      library="torch.sort (key only)"))
     return rows, shapes
 
 
 # backend -> the name of its distance kernel in a profiler trace
-TRACE_KERNEL = {"rowgather": "rowgather_kernel", "dedup_gather": "dedup_kernel",
+TRACE_KERNEL = {"rowgather": "rowgather_kernel", "dma": "dma_kernel",
+                "dedup_gather": "dedup_kernel",
+                "rowgather_int8": "rowgather_int8_kernel",
                 "dedup_gather_int8": "dedup_int8_kernel"}
 
 
@@ -787,20 +811,49 @@ def profile_batch(index, queries, params, smi, backend: str = "rowgather"):
 
 
 def profile_backends(index, qindex, queries, smi):
-    """Phase 11: :func:`profile_batch` for rowgather and dedup_gather on
-    ``index`` and for dedup_gather_int8 on ``qindex``, each after one warm
-    batch; the rows name the package that ran."""
+    """Phase 11: :func:`profile_batch` for rowgather, dma and dedup_gather
+    on ``index`` and for rowgather_int8 and dedup_gather_int8 on
+    ``qindex``, each after one warm batch; the rows name the package that
+    ran."""
     import repro_torch
     params = smoke_params()
     qparams = params.with_(rerank_k=30)
     rows = []
     for idx, p, be in ((index, params, "rowgather"),
+                       (index, params, "dma"),
                        (index, params, "dedup_gather"),
+                       (qindex, qparams, "rowgather_int8"),
                        (qindex, qparams, "dedup_gather_int8")):
         idx.searcher(p.with_(backend=be))(queries[:64])
         rows.append(dict(profile_batch(idx, queries, p, smi, be),
                          package=os.path.dirname(repro_torch.__file__)))
     return rows
+
+
+def kernel_times(index, qindex, queries, smi):
+    """``--profile-src``: l2dist_dma and int8dist_rowgather (the query side
+    given) by :func:`time_ms` on the speedann and topm steps' ids, beside
+    the launch floor, with the package that ran."""
+    import repro_torch
+    from repro_torch.kernels.l2dist import l2dist_dma
+    from repro_torch.quant.kernels import (int8dist_rowgather,
+                                           make_rowgather_int8_dist_fn,
+                                           query_meta)
+    params = smoke_params()
+    codes, scales = qindex.graph.codes, qindex.graph.scales
+    out = {"phase": "kernel_times", "launch_floor_ms": launch_floor_ms()}
+    for step, (ids, q) in step_ids(index, queries, params).items():
+        out[step] = {"shape": list(ids.shape), "l2dist_dma": time_ms(
+            l2dist_dma, index.graph.vectors, ids, q, metric="l2")}
+    steps = step_ids(qindex, queries, params.with_(rerank_k=30),
+                     inner=make_rowgather_int8_dist_fn("l2"))
+    for step, (ids, q) in steps.items():
+        out["int8_" + step] = {"shape": list(ids.shape),
+                               "int8dist_rowgather": time_ms(
+                                   int8dist_rowgather, codes, scales, ids, q,
+                                   metric="l2", qmeta=query_meta(q))}
+    return dict(out, package=os.path.dirname(repro_torch.__file__),
+                card=smi)
 
 
 def smoke_params():
@@ -893,6 +946,7 @@ def main() -> int:
         smi = smi_line()
         index, queries, _ = build_index(args.seed)
         qindex, _ = quantized_index(index, "int8")
+        emit(kernel_times(index, qindex, queries, smi))
         for row in profile_backends(index, qindex, queries, smi):
             emit(row)
         print(smi, flush=True)
@@ -1031,13 +1085,15 @@ def main() -> int:
         raise AssertionError(f"quantized recall@10 {recall_int8} / "
                              f"{recall_bf16} below 0.25")
 
-    rows, shapes = time_kernels(index, queries, params, launches, err)
+    floor = launch_floor_ms()
+    rows, shapes = time_kernels(index, queries, params, launches, err, floor)
     rows2, shapes2 = time_quant_sort_kernels(qindex, queries, qparams,
-                                             launches, err, seen)
+                                             launches, err, seen, floor)
     rows += rows2
     shapes.update(shapes2)
     del seen
-    emit({"phase": "timing", "shapes": shapes, "card": smi})
+    emit({"phase": "timing", "launch_floor_ms": floor, "shapes": shapes,
+          "card": smi})
     for row in profile_backends(index, qindex, queries, smi):
         emit(row)
     del qindex

@@ -1,6 +1,7 @@
 // Shared device code of the int8 gather-distance kernels (rowgather_int8.cu,
 // dedup_int8.cu): the warp's integer reduction of one int8 code row against
-// int32 query codes, and the one f32 rescale that turns it into a distance.
+// int32 query codes (dedup_int8.cu; rowgather_int8.cu reduces a row over 8
+// lanes), and the one f32 rescale that turns it into a distance.
 //
 // The integer sums (c . c_q and ||c||^2) are exact in any order: the query
 // codes live on codec.query_levels(d), which keeps 127 * levels * d below

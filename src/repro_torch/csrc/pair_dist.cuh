@@ -1,6 +1,6 @@
 // Shared device code of the gather-distance kernels (rowgather.cu, dma.cu,
-// dedup.cu): 16-byte loads that widen a table row to f32, the warp-shuffle
-// sum, and the per-pair reduction.
+// dedup.cu, and the int8 ones): 16-byte loads that widen a table row to f32,
+// the warp-shuffle sum, the per-pair reduction and the cp.async staging.
 //
 // pair_dist() is the ONE per-(row, query) reduction of both the rowgather
 // and the dedup_gather kernel.  The element each lane owns, the order in

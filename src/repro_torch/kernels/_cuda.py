@@ -14,6 +14,7 @@ and counts the launch in :data:`LAUNCHES` (a plain integer per kernel).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,17 +35,24 @@ ENTRY = {
     "rowgather": ("rowgather_launch",
                   [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _P]),
     "dma": ("dma_launch",
-            [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _I, _P]),
+            [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
+             _L, _P]),
     "dedup": ("dedup_launch",
               [_P, _I, _L, _I, _P, _L, _L, _I, _P, _P, _I, _I, _P]),
     "rowgather_int8": ("rowgather_int8_launch",
                        [_P, _L, _I, _P, _P, _L, _L, _P, _P, _P, _P, _I, _I,
-                        _P]),
+                        _I, _I, _L, _P]),
     "dedup_int8": ("dedup_int8_launch",
                    [_P, _L, _I, _P, _P, _L, _L, _I, _P, _P, _P, _P, _I, _I,
                     _P]),
     "bitonic": ("bitonic_launch", [_P, _P, _P, _P, _P, _P, _L, _I, _P]),
 }
+
+# an H100 SXM's streaming multiprocessors: what the launch plans assume
+# when they are asked about no card (the CPU tests)
+H100_SMS = 132
+# the most dynamic shared memory one block may take on Hopper (227 KB)
+SMEM_MAX = 232_448
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"l2dist_rowgather": 0, "l2dist_dma": 0,
@@ -57,6 +65,12 @@ _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

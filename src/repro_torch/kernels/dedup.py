@@ -9,8 +9,9 @@ lanes: each call is ONE launch on the (B, C) ids as they are.  A block takes
 hash table, stages each distinct row once and reduces every lane against it
 (``csrc/dedup_tile.cuh``); duplicates across tiles meet in the L2.
 
-The per-pair reduction is the one ``rowgather`` (``rowgather_int8``) uses,
-so the two kernels agree bit for bit on the card.  For CPU tensors
+The per-pair reduction is the one ``rowgather`` uses (and for int8 the
+exact integer sums and the epilogue of ``rowgather_int8``), so the two
+kernels agree bit for bit on the card.  For CPU tensors
 :func:`dedupdist` returns the plain version (``kernels.ref.dist_ref``) and
 :func:`dedupdist_int8` its own (``quant.kernels.int8dist_ref``).
 :func:`unique_ids_inverse` is the port of the reference's sort/unique pass;

@@ -9,8 +9,12 @@ step over the whole candidate grid.
 
 For CPU tensors a wrapper returns its kernel's plain version
 (``kernels.ref``); for CUDA tensors it launches the kernel or raises.
+:func:`dma_plan` is the ``dma`` kernel's launch layout, in Python so that
+the CPU tests reach it.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -22,6 +26,58 @@ def _ip(metric: str) -> int:
     if metric not in ("l2", "ip", "cosine"):
         raise ValueError(f"unknown metric {metric!r}")
     return int(metric != "l2")
+
+
+DMA_THREADS = 256            # kDmaThreads: 8 warps
+DMA_HEADER = 32              # kDmaHeader: two mbarriers and |q|^2
+DMA_SMEM_BUDGET = 96 * 1024  # a block's buffers fit two blocks on an SM
+DMA_RUN_MAX = 32             # candidates of a block: 4 for each of 8 warps
+
+
+class DmaPlan(NamedTuple):
+    """Launch layout of ``csrc/dma.cu``: ``grid`` = (runs per query, B)
+    blocks of :data:`DMA_THREADS`; a block takes ``run`` consecutive
+    candidates of one query and copies them ``chunk`` rows at a time
+    through ``buffers`` shared-memory buffers; ``smem`` dynamic
+    shared-memory bytes."""
+    grid: Tuple[int, int]
+    run: int
+    chunk: int
+    buffers: int
+    smem: int
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def dma_plan(b: int, c: int, d: int, dtype: torch.dtype,
+             sms: int = _cuda.H100_SMS) -> DmaPlan:
+    """The ``dma`` kernel's layout for (B, C) candidates of a (N, d)
+    ``dtype`` table on a card with ``sms`` SMs.  Each query's C candidates
+    are split into runs of at most :data:`DMA_RUN_MAX`, and into more
+    until the grid holds two blocks per SM, so that every row is in flight
+    at once and each warp reduces its rows in one pass (512 blocks at the
+    speedann step, 512 x 32, and at the topm step, 64 x 256).  A run whose
+    rows fit :data:`DMA_SMEM_BUDGET` is one buffer; a wider one is copied
+    in chunks through two."""
+    if b < 1 or c < 1 or d < 1:
+        raise ValueError(f"l2dist_dma: empty launch B={b}, C={c}, d={d}")
+    row = d * torch.empty((), dtype=dtype).element_size()
+    splits = min(c, max(-(-2 * sms // b), -(-c // DMA_RUN_MAX)))
+    run = -(-c // splits)
+    splits = -(-c // run)
+    fixed = _align16(4 * d) + _align16(4 * run) + DMA_HEADER
+    if fixed + run * row <= DMA_SMEM_BUDGET:
+        chunk, buffers = run, 1
+    else:
+        chunk = min(run, max(1, (DMA_SMEM_BUDGET - fixed) // (2 * row)))
+        buffers = 2
+    smem = fixed + buffers * chunk * row
+    if smem > _cuda.SMEM_MAX:
+        raise ValueError(f"l2dist_dma: d = {d} rows do not fit a block's "
+                         f"shared memory ({smem} > {_cuda.SMEM_MAX} bytes)")
+    return DmaPlan((splits, b), run, chunk, buffers, smem)
 
 
 def l2dist_rowgather(table: torch.Tensor, ids: torch.Tensor,
@@ -44,8 +100,9 @@ def l2dist_rowgather(table: torch.Tensor, ids: torch.Tensor,
 
 def l2dist_dma(table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
                *, g: int = 8, metric: str = "l2") -> torch.Tensor:
-    """Tiles of ``g`` rows gathered by cp.async, expanded-form distances;
-    see ``csrc/dma.cu``.  A ragged last tile is masked in the kernel."""
+    """Runs of a query's rows gathered by bulk async copies, expanded-form
+    distances; see ``csrc/dma.cu``.  ``g`` (the reference's tile, checked
+    here) does not shape the kernel, which takes any C."""
     _cuda.check_inputs("l2dist_dma", table, ids, queries)
     ip = _ip(metric)
     if not 1 <= g <= 64:
@@ -54,9 +111,12 @@ def l2dist_dma(table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
         return _ref.dist_expanded_ref(table, ids, queries, metric)
     out = torch.empty(ids.shape, dtype=torch.float32, device=table.device)
     if out.numel():
+        plan = dma_plan(ids.shape[0], ids.shape[1], table.shape[1],
+                        table.dtype, _cuda.sm_count(table.device))
         _cuda.launch("dma", "l2dist_dma",
                      table, int(table.dtype == torch.bfloat16),
                      table.shape[0], table.shape[1], ids, ids.shape[0],
                      ids.shape[1], queries, out, ip,
-                     _cuda.vec_ok(table, queries), g)
+                     _cuda.vec_ok(table, queries), plan.grid[0], plan.run,
+                     plan.chunk, plan.buffers, plan.smem)
     return out

@@ -10,7 +10,8 @@ Registered backends:
 
 * ``ref``          — plain-torch two-level gather (``core.bfis.dist_l2``);
 * ``rowgather``    — ``csrc/rowgather.cu``, one warp per candidate;
-* ``dma``          — ``csrc/dma.cu``, cp.async tiles of ``dma_group`` rows;
+* ``dma``          — ``csrc/dma.cu``, runs of a query's rows by bulk async
+  copy (C padded to ``dma_group``, as the reference pads it);
 * ``dedup_gather`` — ``csrc/dedup.cu``, each distinct row of the step once;
 * ``ref_int8``, ``rowgather_int8`` (``csrc/rowgather_int8.cu``), ``ref_bf16``
   — the quantized backends of ``quant.kernels``, on an index built with

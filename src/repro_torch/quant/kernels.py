@@ -8,7 +8,8 @@ call per global step) that read the index's quantized table
   (int32-accumulated dot against integer query codes on the widest grid
   that cannot overflow, ONE f32 rescale per candidate, :func:`int8dist_ref`);
   per-dimension scales dequantize the gathered rows and reduce in f32;
-* ``rowgather_int8`` — ``csrc/rowgather_int8.cu``, one warp per candidate
+* ``rowgather_int8`` — ``csrc/rowgather_int8.cu``, eight lanes per candidate
+  and 32 candidates a block, laid out by :func:`rowgather_int8_plan`
   (per-vector scales only: the integer path is the point of the kernel);
 * ``ref_bf16``       — plain torch bf16 gather, f32 reduction.
 
@@ -24,7 +25,7 @@ bit for bit.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -148,13 +149,48 @@ def _check_per_vector(kernel: str, codes: torch.Tensor,
             f"served by the 'ref_int8' backend")
 
 
+INT8_ROWS = 32               # kRows: candidates of a block of 256 threads
+INT8_SMEM_BUDGET = 96 * 1024  # query codes of one block
+
+
+class Int8Plan(NamedTuple):
+    """Launch layout of ``csrc/rowgather_int8.cu``: ``grid`` = (slices of
+    C, groups of queries) blocks of 256 threads; a block takes
+    ``slice`` consecutive candidates of each of ``queries`` consecutive
+    queries (``slice * queries <= INT8_ROWS`` candidates, 8 lanes each),
+    and ``smem`` bytes of dynamic shared memory for their int32 query
+    codes."""
+    grid: Tuple[int, int]
+    slice: int
+    queries: int
+    smem: int
+
+
+def rowgather_int8_plan(b: int, c: int, d: int) -> Int8Plan:
+    """The ``rowgather_int8`` kernel's layout for (B, C) candidates of a
+    (N, d) codes table: slices of 32 candidates of one query, or, for
+    C < 32, whole rows of as many queries as 32 candidates hold (fewer
+    where their query codes would pass :data:`INT8_SMEM_BUDGET`), so that
+    a block's ids are one contiguous span."""
+    if b < 1 or c < 1 or d < 1:
+        raise ValueError(f"int8dist_rowgather: empty launch B={b}, C={c}, "
+                         f"d={d}")
+    sl = min(c, INT8_ROWS)
+    qpb = max(1, min(INT8_ROWS // sl, b, INT8_SMEM_BUDGET // (4 * d)))
+    smem = 4 * d * qpb
+    if smem > _cuda.SMEM_MAX:
+        raise ValueError(f"int8dist_rowgather: d = {d} query codes do not "
+                         f"fit a block's shared memory")
+    return Int8Plan((-(-c // sl), -(-b // qpb)), sl, qpb, smem)
+
+
 def int8dist_rowgather(codes: torch.Tensor, scales: torch.Tensor,
                        ids: torch.Tensor, queries: torch.Tensor, *,
                        metric: str = "l2", qmeta=None) -> torch.Tensor:
-    """One warp per candidate over int8 code rows; see
-    ``csrc/rowgather_int8.cu``.  ``qmeta``: a kept :func:`query_meta` of
-    ``queries`` (computed here otherwise).  CPU tensors take
-    :func:`int8dist_ref`."""
+    """Eight lanes per candidate over int8 code rows, laid out by
+    :func:`rowgather_int8_plan`; see ``csrc/rowgather_int8.cu``.
+    ``qmeta``: a kept :func:`query_meta` of ``queries`` (computed here
+    otherwise).  CPU tensors take :func:`int8dist_ref`."""
     _check_per_vector("int8dist_rowgather", codes, scales)
     _cuda.check_int8_inputs("int8dist_rowgather", codes, scales, ids,
                             queries)
@@ -164,10 +200,13 @@ def int8dist_rowgather(codes: torch.Tensor, scales: torch.Tensor,
     qc, qs, q2 = query_side(queries, qmeta)
     out = torch.empty(ids.shape, dtype=torch.float32, device=codes.device)
     if out.numel():
+        plan = rowgather_int8_plan(ids.shape[0], ids.shape[1],
+                                   codes.shape[1])
         _cuda.launch("rowgather_int8", "int8dist_rowgather",
                      codes, codes.shape[0], codes.shape[1], scales, ids,
                      ids.shape[0], ids.shape[1], qc, qs, q2, out,
-                     int(kmetric == "ip"), _cuda.int8_vec_ok(codes, qc))
+                     int(kmetric == "ip"), _cuda.int8_vec_ok(codes, qc),
+                     plan.slice, plan.queries, plan.smem)
     return out
 
 

@@ -361,3 +361,100 @@ def test_int8_search_on_card_equals_plain_search_on_cpu(cuda_device,
         assert torch.equal(w, g.cpu())
     for w, g in zip(want[2], got[2]):
         assert torch.equal(w, g.cpu())
+
+
+# -- the one-wave dma and the segmented int8 rowgather --------------------------
+
+# (B, C, d): C not a multiple of 32 or of the dma tile g, C = 1, C >= 1000
+# (at d = 960 f32 a dma block copies its run in chunks through two
+# buffers), and d from 16 to 960 (d = 100: the int8 table's element path)
+REDESIGN_SHAPES = [(5, 37, 16), (3, 250, 100), (512, 32, 128), (64, 256, 128),
+                   (7, 1, 128), (300, 1000, 128), (300, 1000, 960),
+                   (2, 1000, 960), (9, 5, 960)]
+
+
+def _small_int_inputs(n, d, b, c, seed, dtype=torch.float32):
+    """Integer coordinates in [-31, 32]: every f32 sum of both kernels and
+    of their plain versions is exact, whatever its order."""
+    rng = np.random.RandomState(seed)
+    table = rng.randint(-31, 33, size=(n, d)).astype(np.float32)
+    q = rng.randint(-31, 33, size=(b, d)).astype(np.float32)
+    ids = rng.randint(-2, n + 3, size=(b, c)).astype(np.int32)
+    return (torch.from_numpy(table).to("cuda", dtype),
+            torch.from_numpy(ids).cuda(), torch.from_numpy(q).cuda())
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous view whose data starts 4 bytes (one
+    element of an int8 table) past a 16-byte boundary."""
+    shift = max(1, 4 // t.element_size())
+    flat = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = flat[shift:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("b,c,d", REDESIGN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_dma_exact_on_integer_data_at_plan_shapes(cuda_device, b, c, d, dtype,
+                                                  metric):
+    table, ids, q = _small_int_inputs(3000, d, b, c, seed=b + c + d,
+                                      dtype=dtype)
+    before = _cuda.LAUNCHES["l2dist_dma"]
+    got = l2dist_dma(table, ids, q, metric=metric)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["l2dist_dma"] == before + 1
+    assert torch.equal(got, ref.dist_expanded_ref(table, ids, q, metric))
+    assert torch.equal(got, l2dist_rowgather(table, ids, q, metric=metric))
+
+
+@pytest.mark.parametrize("b,c,d", REDESIGN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dma_matches_plain_at_plan_shapes(cuda_device, b, c, d, dtype):
+    table, ids, q = _inputs(3000, d, b, c, seed=b * c + d, dtype=dtype)
+    got = l2dist_dma(table, ids, q, metric="l2")
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got, ref.dist_expanded_ref(table, ids, q,
+                                                          "l2"),
+                               rtol=tol, atol=tol)
+    assert bool(torch.isinf(got[ids >= 3000]).all())
+
+
+@pytest.mark.parametrize("b,c,d", REDESIGN_SHAPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_int8_rowgather_bit_identical_at_plan_shapes(cuda_device, b, c, d,
+                                                     metric):
+    codes, scales, ids, q = _int8_inputs(3000, d, b, c, seed=b + c + d)
+    before = _cuda.LAUNCHES["int8dist_rowgather"]
+    got = int8dist_rowgather(codes, scales, ids, q, metric=metric)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["int8dist_rowgather"] == before + 1
+    assert torch.equal(got, int8dist_ref(codes, scales, ids, q, metric))
+    assert torch.equal(got, dedupdist_int8(codes, scales, ids, q,
+                                           metric=metric))
+
+
+@pytest.mark.parametrize("case", ["all_padding", "negative", "misaligned"])
+@pytest.mark.parametrize("d", [16, 100, 128])
+def test_redesigned_kernels_edge_ids_and_fallback(cuda_device, case, d):
+    n, b, c = 500, 33, 70
+    table, ids, q = _small_int_inputs(n, d, b, c, seed=d)
+    codes, scales, _, q8 = _int8_inputs(n, d, b, c, seed=d + 1)
+    if case == "all_padding":
+        ids = torch.full_like(ids, n + 5)
+    elif case == "negative":
+        ids[:, ::2] = -1 - ids[:, ::2].abs()
+    else:
+        table, codes = _misaligned(table), _misaligned(codes)
+        assert not _cuda.vec_ok(table, q)
+        assert not _cuda.int8_vec_ok(codes, q8)
+    for metric in ("l2", "ip"):
+        got = l2dist_dma(table, ids, q, metric=metric)
+        assert torch.equal(got, ref.dist_expanded_ref(table, ids, q, metric))
+        got8 = int8dist_rowgather(codes, scales, ids, q8, metric=metric)
+        assert torch.equal(got8, int8dist_ref(codes, scales, ids, q8,
+                                              metric))
+        if case == "all_padding":
+            assert bool(torch.isinf(got).all() and torch.isinf(got8).all())
