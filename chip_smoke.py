@@ -18,9 +18,11 @@ Phases, one JSON line each:
                rowgather on their hard cases (f32, bf16 and int8, d = 128
                and 960: every lane one id, every lane a different row so
                that a block's hash table probes, two successive calls,
-               B = C = 1); sort_pairs exactly
-               on (512, 512) and (64, 1024) rows with heavy key ties and
-               +inf padding;
+               B = C = 1); rowgather, dma and rowgather_int8 at
+               B = 65,573 × C = 32 (more query rows than a grid's y
+               dimension holds), exactly; sort_pairs exactly on (512, 256),
+               (512, 512), (64, 1024), (32, 2048) and (4, 16384) rows with
+               heavy key ties and +inf padding;
   4. data    — 1M SIFT-like vectors: 1000 Gaussian clusters rescaled and
                rounded to integers in [0, 255], plus 264 queries;
   5. graph   — a fixture graph (the port's kNN-24 plus 8 uniform random
@@ -53,8 +55,9 @@ Phases, one JSON line each:
                (speedann: 512 × 32; topm: 64 × 256; the int8 kernels on
                the quantized speedann step with the query side given, as
                the DistFns give it, and with it computed in the call;
-               sort_pairs on a merge's rows,
-               beside torch.sort of the keys alone); for the dedup kernels
+               sort_pairs on a merge's rows, beside torch.sort of the keys
+               alone and the same co-sort as three stable torch.sort passes
+               and gathers, which is not one call); for the dedup kernels
                their tile, the distinct rows of the grid and of its tiles
                and the most lanes of one row;
  11. profile — one speedann batch under torch.profiler for each of
@@ -64,10 +67,11 @@ Phases, one JSON line each:
                time, the top ops by device time.
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
-package under DIR, and times the l2dist_dma and int8dist_rowgather kernels
-at the speedann and topm steps beside the launch floor: unpack an older
-commit (``git archive``) and run both trees on one card to compare them
-batch for batch and kernel for kernel.
+package under DIR, and times l2dist_rowgather, l2dist_dma and
+int8dist_rowgather at the speedann and topm steps and sort_pairs on a
+merge's pass-2 rows, beside the launch floor: unpack an older commit
+(``git archive``) and run both trees on one card to compare them batch for
+batch and kernel for kernel.
 
 The line before the last holds the kernels; the last is
 ``{"ok": true, "device": {...}}``.  With integer coordinates in [0, 255] and
@@ -106,6 +110,7 @@ BACKEND_KERNEL = {"ref": None, "rowgather": "l2dist_rowgather",
                   "dedup_gather_int8": "dedupdist_int8", "ref_bf16": None,
                   "topl_merge": "sort_pairs"}
 SPIN_CYCLES = 2_000_000       # ~1 ms of device spin at the H100's clock
+BIG_B = 65_573                # query rows past a grid's y limit (65,535)
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "l2dist_rowgather": ("src/repro_torch/csrc/rowgather.cu",
@@ -327,7 +332,20 @@ def check_kernels(seed: int):
                             f"dedupdist != rowgather bit for bit ({tname}, "
                             f"{case}, {metric})")
                     cases += 1
-    del tables
+    # more query rows than a grid's y dimension holds (speedann's B·W at
+    # 8,197 queries and W = 8), on integer data: exact
+    table = tables["int_d128"]
+    ids = random_ids(gen, N, BIG_B, 32)
+    q = torch.randint(0, 256, (BIG_B, 128), generator=gen,
+                      device="cuda").float()
+    for name in ("l2dist_rowgather", "l2dist_dma"):
+        got = kern[name](table, ids, q, metric="l2")
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain[name](table, ids, q, "l2")):
+            raise AssertionError(f"{name} at B = {BIG_B}: not exact on "
+                                 f"integer data")
+        cases += 1
+    del tables, table, ids, q
     torch.cuda.empty_cache()
     return err, cases
 
@@ -390,8 +408,21 @@ def check_quant_sort_kernels(seed: int):
                             f"dedupdist_int8 != int8dist_rowgather bit for "
                             f"bit (d={d}, {case}, {metric})")
                     cases += 1
+        if d == 128:
+            # more query rows than a grid's y dimension holds
+            ids = random_ids(gen, rows, BIG_B, 32)
+            q = torch.randn((BIG_B, d), generator=gen, device="cuda")
+            got = int8dist_rowgather(codes, scales, ids, q, metric="l2")
+            torch.cuda.synchronize()
+            if not torch.equal(got, int8dist_ref(codes, scales, ids, q,
+                                                 "l2")):
+                raise AssertionError(f"int8dist_rowgather at B = {BIG_B}: "
+                                     f"not bit-identical to int8dist_ref")
+            cases += 1
+            del ids, q, got
         del codes, scales
-    for b, n in ((512, 512), (64, 1024)):
+    for b, n in ((512, 256), (512, 512), (64, 1024), (32, 2048),
+                 (4, 16384)):
         keys = torch.randint(0, 8, (b, n), generator=gen,
                              device="cuda").float() * 0.25
         keys[torch.rand((b, n), generator=gen, device="cuda") < 0.25] = \
@@ -669,15 +700,47 @@ def sort_bound(keys):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def merge_sorts(seen):
+    """The two sort_pairs calls (pass 1, pass 2) of one mid-search frontier
+    merge, replayed through ops.topl_merge: [(keys, p0, p1), ...]."""
+    import torch
+    from repro_torch.kernels import ops
+    f, ids, dists, _ = seen[len(seen) // 2]
+    real, sorts = ops.sort_pairs, []
+
+    def recording(k, a, b):
+        sorts.append(tuple(t.contiguous() for t in (k, a, b)))
+        return real(k, a, b)
+    ops.sort_pairs = recording
+    try:
+        ops.topl_merge(f.dists, f.ids, f.checked.to(torch.int32), dists, ids)
+    finally:
+        ops.sort_pairs = real
+    return sorts
+
+
+def torch_lexsort3(keys, p0, p1):
+    """The co-sort of sort_pairs in torch: three stable ``torch.sort``
+    passes (p1, then p0, then the key) composed by gathers, as
+    ``core/queue.py::_sort_by`` does for two keys; a yardstick of several
+    calls, used nowhere in the port."""
+    import torch
+    order = torch.sort(p1, dim=1, stable=True).indices
+    order = order.gather(1, torch.sort(p0.gather(1, order), dim=1,
+                                       stable=True).indices)
+    order = order.gather(1, torch.sort(keys.gather(1, order), dim=1,
+                                       stable=True).indices)
+    return tuple(t.gather(1, order) for t in (keys, p0, p1))
+
+
 def time_quant_sort_kernels(qindex, queries, params, launches, err, seen,
                             floor):
     """The int8 kernels on the ids of a mid-search call of the quantized
     speedann (and topm) search, with the query side given as the DistFns
     give it (and, for comparison, computed in the call); sort_pairs on the
     (dist, id) sort of a mid-search frontier merge, beside torch.sort of
-    its keys alone."""
+    its keys alone and three stable torch.sort passes."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.kernels.bitonic import sort_pairs
     from repro_torch.kernels.dedup import dedupdist_int8, tile_lanes
     from repro_torch.kernels.ref import sort_pairs_ref
@@ -720,30 +783,28 @@ def time_quant_sort_kernels(qindex, queries, params, launches, err, seen,
                                  ms_with_query_meta=with_meta))
 
     # the sort_pairs calls of one mid-search merge
-    f, ids, dists, _ = seen[len(seen) // 2]
-    real, sorts = ops.sort_pairs, []
-
-    def recording(k, a, b):
-        sorts.append((k, a, b))
-        return real(k, a, b)
-    ops.sort_pairs = recording
-    try:
-        ops.topl_merge(f.dists, f.ids, f.checked.to(torch.int32), dists, ids)
-    finally:
-        ops.sort_pairs = real
-    keys, p0, p1 = (t.contiguous() for t in sorts[1])   # pass 2: (dist, id)
+    sorts = merge_sorts(seen)
+    keys, p0, p1 = sorts[1]                             # pass 2: (dist, id)
+    if not all(torch.equal(a, b) for a, b in zip(
+            sort_pairs(keys, p0, p1), torch_lexsort3(keys, p0, p1))):
+        raise AssertionError("sort_pairs differs from three stable "
+                             "torch.sort passes on a merge's rows")
     bms, bby = sort_bound(keys)
     ms = time_ms(sort_pairs, keys, p0, p1)
     pms = time_ms(sort_pairs_ref, keys, p0, p1)
     lib = time_ms(torch.sort, keys, dim=1, stable=True)
+    lex = time_ms(torch_lexsort3, keys, p0, p1)
     shapes["merge"] = {"shape": list(keys.shape), "sort_pairs": {
         "ms": ms, "plain_ms": pms, "torch_sort_key_only_ms": lib,
-        "pass1_ms": time_ms(sort_pairs, *(t.contiguous()
-                                          for t in sorts[0]))},
+        "torch_three_stable_sorts_ms": lex,
+        "pass1_ms": time_ms(sort_pairs, *sorts[0])},
         "bound_ms": bms, "bound_by": bby}
     rows.append(dict(kernel_row("sort_pairs", launches, err, ms, pms, bms,
                                 bby, keys.shape, floor), library_ms=lib,
-                     library="torch.sort (key only)"))
+                     library="torch.sort (key only)",
+                     torch_three_stable_sorts_ms=lex,
+                     torch_three_stable_sorts="the same co-sort as 3 "
+                     "stable torch.sort passes + gathers: not one call"))
     return rows, shapes
 
 
@@ -831,20 +892,26 @@ def profile_backends(index, qindex, queries, smi):
 
 
 def kernel_times(index, qindex, queries, smi):
-    """``--profile-src``: l2dist_dma and int8dist_rowgather (the query side
-    given) by :func:`time_ms` on the speedann and topm steps' ids, beside
-    the launch floor, with the package that ran."""
+    """``--profile-src``: l2dist_rowgather, l2dist_dma and
+    int8dist_rowgather (the query side given) by :func:`time_ms` on the
+    speedann and topm steps' ids, and sort_pairs on a mid-search merge's
+    pass-2 rows, beside the launch floor, with the package that ran."""
     import repro_torch
-    from repro_torch.kernels.l2dist import l2dist_dma
+    from repro_torch.kernels.bitonic import sort_pairs
+    from repro_torch.kernels.l2dist import l2dist_dma, l2dist_rowgather
     from repro_torch.quant.kernels import (int8dist_rowgather,
                                            make_rowgather_int8_dist_fn,
                                            query_meta)
     params = smoke_params()
     codes, scales = qindex.graph.codes, qindex.graph.scales
+    table = index.graph.vectors
     out = {"phase": "kernel_times", "launch_floor_ms": launch_floor_ms()}
     for step, (ids, q) in step_ids(index, queries, params).items():
-        out[step] = {"shape": list(ids.shape), "l2dist_dma": time_ms(
-            l2dist_dma, index.graph.vectors, ids, q, metric="l2")}
+        out[step] = {"shape": list(ids.shape),
+                     "l2dist_rowgather": time_ms(l2dist_rowgather, table,
+                                                 ids, q, metric="l2"),
+                     "l2dist_dma": time_ms(l2dist_dma, table, ids, q,
+                                           metric="l2")}
     steps = step_ids(qindex, queries, params.with_(rerank_k=30),
                      inner=make_rowgather_int8_dist_fn("l2"))
     for step, (ids, q) in steps.items():
@@ -852,6 +919,9 @@ def kernel_times(index, qindex, queries, smi):
                                "int8dist_rowgather": time_ms(
                                    int8dist_rowgather, codes, scales, ids, q,
                                    metric="l2", qmeta=query_meta(q))}
+    keys, p0, p1 = merge_sorts(capture_inserts(index, queries, params))[1]
+    out["merge"] = {"shape": list(keys.shape),
+                    "sort_pairs": time_ms(sort_pairs, keys, p0, p1)}
     return dict(out, package=os.path.dirname(repro_torch.__file__),
                 card=smi)
 

@@ -21,7 +21,7 @@
 // shared-memory hash table, then stages each distinct row once and the tile's
 // query rows, all with cp.async, and takes one barrier.  Its warps then take
 // the tile's lanes round-robin, each reducing its row against its query from
-// shared memory with pair_dist(), the per-pair reduction of rowgather.cu.  The
+// shared memory with pair_dist(), whose per-lane order rowgather.cu keeps.  The
 // work of a block is bounded by its tile, so a hot id with hundreds of lanes
 // cannot serialise one warp; the kernel needs no global workspace, atomics in
 // device memory or plan.  Duplicates across tiles are left to the 50 MB L2.
@@ -44,13 +44,14 @@ template <typename T>
 __global__ void __launch_bounds__(kDedupThreads)
 dedup_kernel(const T* __restrict__ table, long long n, int d, const int* __restrict__ ids,
              long long total, long long c, int tile, int nq_max,
-             const float* __restrict__ queries, float* __restrict__ out, bool ip, bool vec) {
+             const float* __restrict__ queries, float* __restrict__ out, bool ip, bool vec,
+             long long first) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ TileTable t;
   float* q_s = reinterpret_cast<float*>(smem_raw);
   T* rows_s = reinterpret_cast<T*>(smem_raw + rows_offset(nq_max, d));
 
-  const long long p0 = static_cast<long long>(blockIdx.x) * tile;
+  const long long p0 = (first + blockIdx.x) * tile;
   const int cnt = static_cast<int>(total - p0 < tile ? total - p0 : tile);
   const int slot = dedup_tile(t, ids, p0, cnt, n);
   const long long b0 = p0 / c;
@@ -84,11 +85,11 @@ int launch(const void* table, long long n, int d, const int* ids, long long b, l
                              allowed))
     return rc;
   const long long total = b * c;
-  const unsigned blocks = static_cast<unsigned>((total + tile - 1) / tile);
-  dedup_kernel<T><<<blocks, kDedupThreads, smem, stream>>>(
-      static_cast<const T*>(table), n, d, ids, total, c, tile, nq, queries, out, ip != 0,
-      vec != 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_blocks((total + tile - 1) / tile, [&](long long first, unsigned count) {
+    dedup_kernel<T><<<count, kDedupThreads, smem, stream>>>(
+        static_cast<const T*>(table), n, d, ids, total, c, tile, nq, queries, out, ip != 0,
+        vec != 0, first);
+  });
 }
 
 }  // namespace repro_torch

@@ -45,7 +45,8 @@ dedup_int8_kernel(const int8_t* __restrict__ codes, long long n, int d,
                   const float* __restrict__ scales, const int* __restrict__ ids,
                   long long total, long long c, int tile, int nq_max,
                   const int* __restrict__ qc, const float* __restrict__ qs,
-                  const float* __restrict__ q2, float* __restrict__ out, bool ip, bool vec) {
+                  const float* __restrict__ q2, float* __restrict__ out, bool ip, bool vec,
+                  long long first) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ TileTable t;
   const Int8Layout lay(nq_max, tile, d);
@@ -55,7 +56,7 @@ dedup_int8_kernel(const int8_t* __restrict__ codes, long long n, int d,
   float* scale_s = reinterpret_cast<float*>(smem_raw + lay.scale);
   int8_t* rows_s = reinterpret_cast<int8_t*>(smem_raw + lay.rows);
 
-  const long long p0 = static_cast<long long>(blockIdx.x) * tile;
+  const long long p0 = (first + blockIdx.x) * tile;
   const int cnt = static_cast<int>(total - p0 < tile ? total - p0 : tile);
   const int slot = dedup_tile(t, ids, p0, cnt, n);
   const long long b0 = p0 / c;
@@ -100,11 +101,11 @@ extern "C" int dedup_int8_launch(const void* codes, long long n, int d, const vo
                              allowed))
     return rc;
   const long long total = b * c;
-  const unsigned blocks = static_cast<unsigned>((total + tile - 1) / tile);
-  dedup_int8_kernel<<<blocks, kDedupThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(codes), n, d, static_cast<const float*>(scales),
-      static_cast<const int*>(ids), total, c, tile, nq, static_cast<const int*>(qc),
-      static_cast<const float*>(qs), static_cast<const float*>(q2), static_cast<float*>(out),
-      ip != 0, vec != 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_blocks((total + tile - 1) / tile, [&](long long first, unsigned count) {
+    dedup_int8_kernel<<<count, kDedupThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(codes), n, d, static_cast<const float*>(scales),
+        static_cast<const int*>(ids), total, c, tile, nq, static_cast<const int*>(qc),
+        static_cast<const float*>(qs), static_cast<const float*>(q2), static_cast<float*>(out),
+        ip != 0, vec != 0, first);
+  });
 }

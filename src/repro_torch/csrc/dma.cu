@@ -18,7 +18,8 @@
 // the chain ids -> rows -> reduce -> store.  A block takes a run of at most
 // 32 consecutive candidates of one query (kernels/l2dist.py::dma_plan sizes
 // the runs so that the grid covers the SMs; at the speedann and topm steps
-// it is 512 blocks, one wave).  It loads the run's ids once, coalesced, into
+// it is 512 blocks, one wave); the grid is 1-D, `runs` blocks a query, so
+// no grid dimension limits B.  It loads the run's ids once, coalesced, into
 // shared memory while the query is staged beside them by cp.async and warp
 // 0 sums |q|^2 once for the block.  Then one thread per valid row issues
 // Hopper's 1-D bulk copy (cp.async.bulk ... complete_tx) of that row into
@@ -42,16 +43,6 @@ constexpr int kDmaThreads = 256;   // 8 warps; also the most rows of a chunk
 constexpr int kWarps = kDmaThreads / 32;
 constexpr int kRowsPerWarp = 4;    // rows a warp reduces together
 constexpr int kDmaHeader = 32;     // two mbarriers and |q|^2
-
-// warp_sum() of each of the 2 x kRowsPerWarp values, their butterflies
-// interleaved: each value takes warp_sum()'s tree, so it ends with its bits
-__device__ __forceinline__ void warp_sums(float (&v)[2 * kRowsPerWarp]) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int j = 0; j < 2 * kRowsPerWarp; ++j) v[j] += __shfl_xor_sync(kFullMask, v[j], off);
-  }
-}
 
 __host__ __device__ inline long long dma_align16(long long x) { return (x + 15) / 16 * 16; }
 
@@ -106,7 +97,7 @@ template <typename T>
 __global__ void __launch_bounds__(kDmaThreads)
 dma_kernel(const T* __restrict__ table, long long n, int d, const int* __restrict__ ids,
            long long c, const float* __restrict__ queries, float* __restrict__ out, bool ip,
-           bool vec, int run, int chunk) {
+           bool vec, long long runs, int run, int chunk, long long first) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   int* run_ids = reinterpret_cast<int*>(smem_raw + dma_align16(4LL * d));
@@ -119,8 +110,9 @@ dma_kernel(const T* __restrict__ table, long long n, int d, const int* __restric
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const long long b = blockIdx.y;
-  const long long c0 = static_cast<long long>(blockIdx.x) * run;
+  const long long blk = first + blockIdx.x;  // run blk % runs of query blk / runs
+  const long long b = blk / runs;
+  const long long c0 = (blk - b * runs) * run;
   const int rows = static_cast<int>(c - c0 < run ? c - c0 : run);
   const float* q = queries + b * d;
 
@@ -225,37 +217,38 @@ dma_kernel(const T* __restrict__ table, long long n, int d, const int* __restric
 
 template <typename T>
 int launch(const void* table, long long n, int d, const int* ids, long long b, long long c,
-           const float* queries, float* out, int ip, int vec, int runs, int run, int chunk,
-           int buffers, long long smem, cudaStream_t stream) {
+           const float* queries, float* out, int ip, int vec, long long blocks, long long runs,
+           int run, int chunk, int buffers, long long smem, cudaStream_t stream) {
   // the plan (kernels/l2dist.py::dma_plan) must cover C exactly once and
-  // agree with this layout
-  const bool ok = run >= 1 && runs >= 1 && static_cast<long long>(runs) * run >= c &&
-                  static_cast<long long>(runs - 1) * run < c && chunk >= 1 &&
-                  chunk <= kDmaThreads && (buffers == 2 || (buffers == 1 && chunk >= run)) &&
+  // agree with this layout: a 1-D grid of `runs` blocks for each query
+  const bool ok = run >= 1 && runs >= 1 && runs * run >= c && (runs - 1) * run < c &&
+                  chunk >= 1 && chunk <= kDmaThreads &&
+                  (buffers == 2 || (buffers == 1 && chunk >= run)) &&
                   smem == dma_smem(d, sizeof(T), run, chunk, buffers) && smem <= 232448 &&
-                  b >= 1 && b <= 65535;
+                  b >= 1 && blocks == runs * b;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (int rc = set_smem(reinterpret_cast<const void*>(&dma_kernel<T>), static_cast<size_t>(smem)))
     return rc;
-  const dim3 grid(static_cast<unsigned>(runs), static_cast<unsigned>(b));
-  dma_kernel<T><<<grid, kDmaThreads, static_cast<size_t>(smem), stream>>>(
-      static_cast<const T*>(table), n, d, ids, c, queries, out, ip != 0, vec != 0, run, chunk);
-  return static_cast<int>(cudaGetLastError());
+  return launch_blocks(blocks, [&](long long first, unsigned count) {
+    dma_kernel<T><<<count, kDmaThreads, static_cast<size_t>(smem), stream>>>(
+        static_cast<const T*>(table), n, d, ids, c, queries, out, ip != 0, vec != 0, runs, run,
+        chunk, first);
+  });
 }
 
 }  // namespace repro_torch
 
 extern "C" int dma_launch(const void* table, int table_bf16, long long n, int d, const void* ids,
                           long long b, long long c, const void* queries, void* out, int ip,
-                          int vec, int runs, int run, int chunk, int buffers, long long smem,
-                          void* stream) {
+                          int vec, long long blocks, long long runs, int run, int chunk,
+                          int buffers, long long smem, void* stream) {
   const int* i = static_cast<const int*>(ids);
   const float* q = static_cast<const float*>(queries);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table_bf16)
-    return repro_torch::launch<__nv_bfloat16>(table, n, d, i, b, c, q, o, ip, vec, runs, run,
-                                              chunk, buffers, smem, s);
-  return repro_torch::launch<float>(table, n, d, i, b, c, q, o, ip, vec, runs, run, chunk,
-                                    buffers, smem, s);
+    return repro_torch::launch<__nv_bfloat16>(table, n, d, i, b, c, q, o, ip, vec, blocks, runs,
+                                              run, chunk, buffers, smem, s);
+  return repro_torch::launch<float>(table, n, d, i, b, c, q, o, ip, vec, blocks, runs, run,
+                                    chunk, buffers, smem, s);
 }

@@ -1,12 +1,14 @@
-// Shared device code of the gather-distance kernels (rowgather.cu, dma.cu,
-// dedup.cu, and the int8 ones): 16-byte loads that widen a table row to f32,
-// the warp-shuffle sum, the per-pair reduction and the cp.async staging.
+// Shared device code of the CUDA kernels (rowgather.cu, dma.cu, dedup.cu,
+// the int8 ones and bitonic.cu): 16-byte loads that widen a table row to f32,
+// the warp-shuffle sums, the per-pair reduction, the cp.async staging and the
+// launch of a 1-D grid of any size.
 //
-// pair_dist() is the ONE per-(row, query) reduction of both the rowgather
-// and the dedup_gather kernel.  The element each lane owns, the order in
-// which it accumulates them and the shuffle tree are fixed by (d, vec) alone,
-// so the two kernels return bit-identical distances for the same pair
-// whether the row sits in device memory or in shared memory.
+// pair_dist() is the per-(row, query) reduction of the dedup_gather kernel;
+// rowgather.cu reduces several rows at once in the same per-lane order.  The
+// element each lane owns, the order in which it accumulates them and the
+// shuffle tree are fixed by (d, vec) alone, so the two kernels return
+// bit-identical distances for the same pair whether the row sits in device
+// memory or in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +51,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
   return v;
+}
+
+// warp_sum() of each of K values, their butterflies interleaved: each value
+// takes warp_sum()'s tree, so it ends with the same bits
+template <int K>
+__device__ __forceinline__ void warp_sums(float (&v)[K]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] += __shfl_xor_sync(kFullMask, v[j], off);
+  }
 }
 
 // Distance of one row (d elements of T) to one f32 query, reduced by the
@@ -143,6 +156,22 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ table,
       dst[(long long)r * d + e] = table[safe_row(id) * d + e];
     }
   }
+}
+
+// The most blocks of a 1-D grid (gridDim.x).
+constexpr long long kMaxBlocks = 2147483647LL;
+
+// Launch `blocks` blocks (any count >= 1) as 1-D grids of at most kMaxBlocks:
+// go(first, count) launches blocks [first, first + count), and the kernel
+// adds `first` to blockIdx.x.  Returns the first CUDA error, else 0.
+template <typename Launch>
+inline int launch_blocks(long long blocks, Launch go) {
+  for (long long first = 0; first < blocks; first += kMaxBlocks) {
+    const long long count = blocks - first < kMaxBlocks ? blocks - first : kMaxBlocks;
+    go(first, static_cast<unsigned>(count));
+    if (int rc = static_cast<int>(cudaGetLastError())) return rc;
+  }
+  return 0;
 }
 
 inline int set_smem(const void* kernel, size_t bytes) {

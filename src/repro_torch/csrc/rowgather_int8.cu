@@ -22,7 +22,8 @@
 // Design: the chain is two round trips.  A block serves kRows = 32
 // candidates: a slice of 32 of one query's candidates, or, for C < 32, the
 // whole rows of a few queries (quant/kernels.py::rowgather_int8_plan), so
-// its ids are one contiguous span.  Each run of 8 lanes (a segment) owns one
+// its ids are one contiguous span; the grid is 1-D, so no grid dimension
+// limits B.  Each run of 8 lanes (a segment) owns one
 // candidate; a warp's four segments load four consecutive ids in one
 // instruction.  Step 1 issues together the query codes' cp.async into shared
 // memory, the ids and each segment's qs[b] and q2[b].  Step 2, as soon as a
@@ -70,16 +71,19 @@ rowgather_int8_kernel(const int8_t* __restrict__ codes, long long n, int d,
                       const float* __restrict__ scales, const int* __restrict__ ids,
                       long long bsz, long long c, const int* __restrict__ qc,
                       const float* __restrict__ qs, const float* __restrict__ q2,
-                      float* __restrict__ out, bool ip, bool vec, int slice, int qpb) {
+                      float* __restrict__ out, bool ip, bool vec, long long slices, int slice,
+                      int qpb, long long first) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* qsh = reinterpret_cast<int*>(smem_raw);  // qpb rows of d query codes
   const int lane = threadIdx.x & 31;
   const int sl = lane & (kSegLanes - 1);
   const int t = threadIdx.x / kSegLanes;  // the block's candidate of this segment
   const int qi = t / slice;
-  const long long b0 = static_cast<long long>(blockIdx.y) * qpb;
+  const long long blk = first + blockIdx.x;  // slice blk % slices of query group blk / slices
+  const long long gy = blk / slices;
+  const long long b0 = gy * qpb;
   const long long b = b0 + qi;
-  const long long cc = static_cast<long long>(blockIdx.x) * slice + (t - qi * slice);
+  const long long cc = (blk - gy * slices) * slice + (t - qi * slice);
   const bool live = qi < qpb && b < bsz && cc < c;
 
   // step 1: query codes -> shared memory, ids, query scales and norms
@@ -141,25 +145,26 @@ rowgather_int8_kernel(const int8_t* __restrict__ codes, long long n, int d,
 extern "C" int rowgather_int8_launch(const void* codes, long long n, int d,
                                      const void* scales, const void* ids, long long b,
                                      long long c, const void* qc, const void* qs,
-                                     const void* q2, void* out, int ip, int vec, int slice,
-                                     int qpb, long long smem, void* stream) {
+                                     const void* q2, void* out, int ip, int vec, long long blocks,
+                                     long long slices, int slice, int qpb, long long smem,
+                                     void* stream) {
   using namespace repro_torch;
   // the plan (quant/kernels.py::rowgather_int8_plan) must fit a block's
-  // kRows candidates and this layout
+  // kRows candidates and this layout: a 1-D grid of `slices` blocks for each
+  // group of qpb queries
   const bool ok = slice >= 1 && qpb >= 1 && slice * qpb <= kRows && (qpb == 1 || slice == c) &&
+                  slices == (c + slice - 1) / slice && blocks == slices * ((b + qpb - 1) / qpb) &&
                   smem == static_cast<long long>(qpb) * d * 4 && smem <= 232448 && b >= 1;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const long long gy = (b + qpb - 1) / qpb;
-  if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (int rc = set_smem(reinterpret_cast<const void*>(&rowgather_int8_kernel),
                         static_cast<size_t>(smem)))
     return rc;
-  const dim3 grid(static_cast<unsigned>((c + slice - 1) / slice), static_cast<unsigned>(gy));
-  rowgather_int8_kernel<<<grid, kThreads, static_cast<size_t>(smem),
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(codes), n, d, static_cast<const float*>(scales),
-      static_cast<const int*>(ids), b, c, static_cast<const int*>(qc),
-      static_cast<const float*>(qs), static_cast<const float*>(q2), static_cast<float*>(out),
-      ip != 0, vec != 0, slice, qpb);
-  return static_cast<int>(cudaGetLastError());
+  return launch_blocks(blocks, [&](long long first, unsigned count) {
+    rowgather_int8_kernel<<<count, kThreads, static_cast<size_t>(smem),
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(codes), n, d, static_cast<const float*>(scales),
+        static_cast<const int*>(ids), b, c, static_cast<const int*>(qc),
+        static_cast<const float*>(qs), static_cast<const float*>(q2), static_cast<float*>(out),
+        ip != 0, vec != 0, slices, slice, qpb, first);
+  });
 }

@@ -33,15 +33,16 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # source name -> (C entry point, argtypes)
 ENTRY = {
     "rowgather": ("rowgather_launch",
-                  [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _P]),
+                  [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _L, _I, _L,
+                   _L, _P]),
     "dma": ("dma_launch",
-            [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _I, _I, _I, _I,
+            [_P, _I, _L, _I, _P, _L, _L, _P, _P, _I, _I, _L, _L, _I, _I, _I,
              _L, _P]),
     "dedup": ("dedup_launch",
               [_P, _I, _L, _I, _P, _L, _L, _I, _P, _P, _I, _I, _P]),
     "rowgather_int8": ("rowgather_int8_launch",
                        [_P, _L, _I, _P, _P, _L, _L, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _L, _P]),
+                        _L, _L, _I, _I, _L, _P]),
     "dedup_int8": ("dedup_int8_launch",
                    [_P, _L, _I, _P, _P, _L, _L, _I, _P, _P, _P, _P, _I, _I,
                     _P]),
@@ -202,7 +203,5 @@ def check_inputs(kernel: str, table: torch.Tensor, ids: torch.Tensor,
         if not (table.is_contiguous() and ids.is_contiguous()
                 and queries.is_contiguous()):
             raise ValueError(f"{kernel}: CUDA inputs must be contiguous")
-        if ids.shape[0] > 65535:
-            raise ValueError(f"{kernel}: at most 65535 query rows per launch")
     elif dev.type != "cpu":
         raise ValueError(f"{kernel}: unsupported device {dev}")

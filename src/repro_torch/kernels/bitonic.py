@@ -2,9 +2,10 @@
 
 Wrapper of ``csrc/bitonic.cu``, the Hopper port of
 ``repro.kernels.bitonic.sort_pairs``: (B, n) f32 keys with two (B, n) int32
-payloads, each row sorted ascending in the total order (key, p0, p1), one
-block per row with the row in shared memory.  n is a power of two from 1 up
-to :data:`MAX_N` = 16384, the largest whose 12 B × n fit a block's shared
+payloads, each row sorted ascending in the total order (key, p0, p1).  A
+row of n <= 1024 is sorted in one warp's registers; a longer one merges
+1024-element runs through shared memory.  n is a power of two from 1 up to
+:data:`MAX_N` = 16384, the largest whose 12 B × n fit a block's shared
 memory on an H100 (227 KB); other n raise ``ValueError``.
 
 For CPU tensors :func:`sort_pairs` returns the plain version

@@ -154,13 +154,14 @@ INT8_SMEM_BUDGET = 96 * 1024  # query codes of one block
 
 
 class Int8Plan(NamedTuple):
-    """Launch layout of ``csrc/rowgather_int8.cu``: ``grid`` = (slices of
-    C, groups of queries) blocks of 256 threads; a block takes
-    ``slice`` consecutive candidates of each of ``queries`` consecutive
-    queries (``slice * queries <= INT8_ROWS`` candidates, 8 lanes each),
-    and ``smem`` bytes of dynamic shared memory for their int32 query
-    codes."""
-    grid: Tuple[int, int]
+    """Launch layout of ``csrc/rowgather_int8.cu``: a 1-D grid of
+    ``blocks`` = ``slices`` × (groups of queries) blocks of 256 threads;
+    block k takes the (k % slices)-th ``slice`` consecutive candidates of
+    each of the ``queries`` consecutive queries of group k // slices
+    (``slice * queries <= INT8_ROWS`` candidates, 8 lanes each), and
+    ``smem`` bytes of dynamic shared memory for their int32 query codes."""
+    blocks: int
+    slices: int
     slice: int
     queries: int
     smem: int
@@ -171,7 +172,8 @@ def rowgather_int8_plan(b: int, c: int, d: int) -> Int8Plan:
     (N, d) codes table: slices of 32 candidates of one query, or, for
     C < 32, whole rows of as many queries as 32 candidates hold (fewer
     where their query codes would pass :data:`INT8_SMEM_BUDGET`), so that
-    a block's ids are one contiguous span."""
+    a block's ids are one contiguous span.  The grid is 1-D, so no grid
+    dimension limits B."""
     if b < 1 or c < 1 or d < 1:
         raise ValueError(f"int8dist_rowgather: empty launch B={b}, C={c}, "
                          f"d={d}")
@@ -181,7 +183,8 @@ def rowgather_int8_plan(b: int, c: int, d: int) -> Int8Plan:
     if smem > _cuda.SMEM_MAX:
         raise ValueError(f"int8dist_rowgather: d = {d} query codes do not "
                          f"fit a block's shared memory")
-    return Int8Plan((-(-c // sl), -(-b // qpb)), sl, qpb, smem)
+    slices = -(-c // sl)
+    return Int8Plan(slices * -(-b // qpb), slices, sl, qpb, smem)
 
 
 def int8dist_rowgather(codes: torch.Tensor, scales: torch.Tensor,
@@ -206,7 +209,8 @@ def int8dist_rowgather(codes: torch.Tensor, scales: torch.Tensor,
                      codes, codes.shape[0], codes.shape[1], scales, ids,
                      ids.shape[0], ids.shape[1], qc, qs, q2, out,
                      int(kmetric == "ip"), _cuda.int8_vec_ok(codes, qc),
-                     plan.slice, plan.queries, plan.smem)
+                     plan.blocks, plan.slices, plan.slice, plan.queries,
+                     plan.smem)
     return out
 
 

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card, against their plain versions.
 
 The f32 gather-distance kernels to 1e-5 (exact on integer data); the int8
-kernels bit for bit; the bitonic co-sort exactly, and the frontier merge on
-it equal to ``queue.insert``.
+kernels bit for bit; the bitonic co-sort exactly at every row length, and
+the frontier merge on it equal to ``queue.insert``; the gather kernels and
+searches through them past 65,535 query rows.
 
 Every test here needs a CUDA device (the kernels are CUDA C++ with no CPU
 mode) and skips without one.  The file imports no JAX, so it also runs on a
@@ -458,3 +459,116 @@ def test_redesigned_kernels_edge_ids_and_fallback(cuda_device, case, d):
                                               metric))
         if case == "all_padding":
             assert bool(torch.isinf(got).all() and torch.isinf(got8).all())
+
+
+# -- the register-resident rowgather and co-sort; no grid limit on B -----------
+
+@pytest.mark.parametrize("b,c,d", REDESIGN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_rowgather_exact_on_integer_data_at_plan_shapes(cuda_device, b, c, d,
+                                                        dtype, metric):
+    table, ids, q = _small_int_inputs(3000, d, b, c, seed=b + c + d + 1,
+                                      dtype=dtype)
+    before = _cuda.LAUNCHES["l2dist_rowgather"]
+    got = l2dist_rowgather(table, ids, q, metric=metric)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["l2dist_rowgather"] == before + 1
+    assert torch.equal(got, ref.dist_ref(table, ids, q, metric))
+    assert torch.equal(got, dedupdist(table, ids, q, metric=metric))
+
+
+@pytest.mark.parametrize("case", ["d30", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_rowgather_element_path_bitwise_equals_dedup(cuda_device, case, dtype,
+                                                     metric):
+    # the element path (vec = 0): d not a multiple of the 16-byte vector,
+    # or a table that is not 16-byte aligned; N(0, 1) data, so the two
+    # kernels agree only if each lane sums its elements in one order
+    d = 30 if case == "d30" else 128
+    table, ids, q = _inputs(4000, d, 512, 32, seed=17, dtype=dtype)
+    ids[:, ::5] = -2
+    if case == "misaligned":
+        table = _misaligned(table)
+    assert not _cuda.vec_ok(table, q)
+    got = l2dist_rowgather(table, ids, q, metric=metric)
+    assert torch.equal(got, dedupdist(table, ids, q, metric=metric))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    want = ref.dist_ref(table, ids, q, metric)
+    fin = ids < 4000
+    torch.testing.assert_close(got[fin], want[fin], rtol=tol, atol=tol)
+    assert bool(torch.isinf(got[~fin]).all())
+
+
+@pytest.mark.parametrize("kernel", ["l2dist_rowgather", "l2dist_dma",
+                                    "int8dist_rowgather"])
+def test_gather_kernels_past_the_grid_y_limit(cuda_device, kernel):
+    # 65,573 query rows: more than a grid's y dimension (65,535) holds
+    b, c, d = 65_573, 32, 16
+    before = _cuda.LAUNCHES[kernel]
+    if kernel == "int8dist_rowgather":
+        codes, scales, ids, q = _int8_inputs(1000, d, b, c, seed=31)
+        got = int8dist_rowgather(codes, scales, ids, q, metric="l2")
+        want = int8dist_ref(codes, scales, ids, q, "l2")
+    else:
+        table, ids, q = _small_int_inputs(1000, d, b, c, seed=31)
+        fn, plain = KERNELS[kernel]
+        got = fn(table, ids, q, metric="l2")
+        want = plain(table, ids, q, "l2")
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[kernel] == before + 1
+    assert torch.equal(got, want)
+    assert bool(torch.isinf(got[ids >= 1000]).all())
+
+
+KERNEL_OF = {"rowgather": "l2dist_rowgather", "dma": "l2dist_dma"}
+
+
+@pytest.mark.parametrize("backend", ["rowgather", "dma"])
+def test_speedann_of_8200_queries_equals_ref(cuda_device, backend):
+    # 8,200 queries at W = 8 walkers: each distance call has 65,600 query
+    # rows (B·W), past the 65,535 of a grid's y dimension
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randint(0, 256, size=(1500, 16))
+                         .astype(np.float32)).cuda()
+    q = torch.from_numpy(rng.randint(0, 256, size=(8200, 16))
+                         .astype(np.float32)).cuda()
+    nbrs = torch.cat([knn_graph(x, 8), torch.from_numpy(
+        rng.randint(0, 1500, size=(1500, 4)).astype(np.int32)).cuda()],
+        dim=1)
+    graph = make_padded_csr(nbrs, x, device="cuda")
+    cfg = SearchConfig(k=10, queue_len=16, m_max=2, num_walkers=8,
+                       dist_backend=backend)
+    want = search_speedann_batch(graph, q, cfg.with_(dist_backend="ref"))
+    kernel = KERNEL_OF[backend]
+    before = _cuda.LAUNCHES[kernel]
+    got = search_speedann_batch(graph, q, cfg)
+    assert _cuda.LAUNCHES[kernel] > before
+    for w, g in zip(want[:2], got[:2]):
+        assert torch.equal(w, g)
+    assert len(got[2]) == 8
+    for w, g in zip(want[2], got[2]):
+        assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("n", [2**k for k in range(15)])
+def test_sort_pairs_exact_at_every_length(cuda_device, n):
+    # heavy key ties, +inf padding, and duplicate (key, p0) pairs that only
+    # p1 orders; a 1024-element row is one warp's registers, a longer one
+    # merges runs of 1024 through shared memory
+    b = max(1, min(300, 2**16 // n))
+    gen = torch.Generator(device="cuda").manual_seed(100 + n)
+    keys = torch.randint(0, 4, (b, n), generator=gen, device="cuda").float()
+    keys[torch.rand((b, n), generator=gen, device="cuda") < 0.3] = \
+        float("inf")
+    p0 = torch.randint(0, 2, (b, n), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    p1 = torch.randperm(b * n, generator=gen, device="cuda").reshape(
+        b, n).to(torch.int32) % max(2, n // 2)
+    before = _cuda.LAUNCHES["sort_pairs"]
+    got = sort_pairs(keys, p0, p1)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["sort_pairs"] == before + 1
+    for g, w in zip(got, sort_pairs_ref(keys, p0, p1)):
+        assert torch.equal(g, w)
