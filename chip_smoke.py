@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's Speed-ANN search path on one GPU.
+"""Run the PyTorch/CUDA port's Speed-ANN search and build paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--profile-src DIR]
 
@@ -9,7 +9,8 @@ Phases, one JSON line each:
   2. build   — nvcc builds the six kernels (csrc/*.cu), in parallel;
   3. kernels — each kernel against its plain torch version: the f32
                gather-distance kernels at the search path's shapes (N = 1M,
-               d = 128; B·W = 512 × C = 32 and B = 64 × C = 256), plus
+               d = 128; B·W = 512 × C = 32 and B = 64 × C = 256) and the
+               construct phase's (B = 8,192 × C = 128), plus
                d = 960, a bf16 table, padding ids, a ragged C, C = 1000
                (dma's chunked runs), and integer data held to exact
                equality, dma also to rowgather; the int8 kernels bit for
@@ -64,7 +65,24 @@ Phases, one JSON line each:
                rowgather, dma, dedup_gather, rowgather_int8 and
                dedup_gather_int8: wall time, device busy time and idle
                share, kernel launches, the distance kernel's calls and mean
-               time, the top ops by device time.
+               time, the top ops by device time;
+ 12. construct — the port builds the index it searches, on the card:
+               AnnIndex.build of 2,048 integer vectors with rowgather and
+               build_batch 512 equal (graph bytes and medoid) to the CPU
+               build with ref and build_batch 32; the build of the first
+               N_BUILD smoke vectors (degree 32, alpha 1, rowgather,
+               build_batch 8192): seconds, points/s, seconds of candidate
+               search / prune / reverse pass, peak memory, l2dist_rowgather
+               as its only kernel, one insertion and one refinement round
+               under torch.profiler; speedann recall@10 of the built graph
+               above phase 7's fixture recall; add of 1% new vectors from
+               the same clusters, each found at distance 0; delete of 1% of
+               the ids (chosen by --seed), none returned, recall@10 against
+               the tombstone-aware exact still above the fixture's; an
+               hnsw build at N_HNSW = 100,000, its bfis
+               (through the upper-level descent) on 64 queries equal in
+               ids, dists and the 8 counters to the CPU search of the saved
+               index.
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -111,6 +129,15 @@ BACKEND_KERNEL = {"ref": None, "rowgather": "l2dist_rowgather",
                   "topl_merge": "sort_pairs"}
 SPIN_CYCLES = 2_000_000       # ~1 ms of device spin at the H100's clock
 BIG_B = 65_573                # query rows past a grid's y limit (65,535)
+N_BUILD = 1_000_000           # points the construct phase builds
+N_HNSW = 100_000              # points of its hnsw build (two builds inside)
+BUILD_BATCH = 8192            # the builds' candidate-search tile
+# the α of the construct phase's builds.  On this data (1000 equidistant
+# Gaussian clusters, far more members than a row's 32 slots) the default
+# α = 1.2 occludes no same-cluster candidate, so rows fill with them and
+# the searches cannot navigate the graph; α = 1 prunes them
+# (scripts/torch_build_witness.py builds the default α with both packages).
+BUILD_ALPHA = 1.0
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "l2dist_rowgather": ("src/repro_torch/csrc/rowgather.cu",
@@ -142,7 +169,9 @@ def smi_line() -> str:
 def make_data(seed: int, n: int, d: int = 128, n_clusters: int = 1000,
               n_queries: int = 264):
     """SIFT-like integer vectors: cluster centres N(0, 1), unit noise,
-    rescaled by the base's range and rounded into [0, 255]."""
+    rescaled by the base's range and rounded into [0, 255].  Returns (base,
+    queries, the generator, ``more(m, seed)``: m further vectors from the
+    same clusters and scale, drawn from their own generator)."""
     rng = np.random.RandomState(seed)
     centres = rng.normal(size=(n_clusters, d)).astype(np.float32)
     base = centres[rng.randint(0, n_clusters, n)]
@@ -154,7 +183,12 @@ def make_data(seed: int, n: int, d: int = 128, n_clusters: int = 1000,
     def scale(x):
         return np.clip(np.rint((x - lo) / (hi - lo) * 255.0), 0, 255
                        ).astype(np.float32)
-    return scale(base), scale(queries), rng
+
+    def more(m: int, more_seed: int):
+        g = np.random.RandomState(more_seed)
+        x = centres[g.randint(0, n_clusters, m)]
+        return scale(x + g.normal(size=(m, d)).astype(np.float32))
+    return scale(base), scale(queries), rng, more
 
 
 def time_ms(fn, *args, reps: int = 30, **kw) -> float:
@@ -261,8 +295,10 @@ def check_kernels(seed: int):
     }
     tables["bf16_d128"] = tables["f32_d128"].to(torch.bfloat16)
     tables["bf16_d960"] = tables["f32_d960"].to(torch.bfloat16)
-    # 250: ragged; 300 x 1000: dma copies its runs in chunks
-    shapes = [(512, 32), (64, 256), (64, 250), (300, 1000)]
+    # 250: ragged; 300 x 1000: dma copies its runs in chunks; the construct
+    # phase's candidate searches: BUILD_BATCH rows x C = m_max 4 x R 32
+    shapes = [(512, 32), (64, 256), (64, 250), (300, 1000),
+              (BUILD_BATCH, 128)]
     err = {k: 0.0 for k in kern}
     cases = 0
     for tname, table in tables.items():
@@ -941,7 +977,7 @@ def build_index(seed: int):
     from repro_torch.core import knn_graph, make_padded_csr
 
     t0 = time.perf_counter()
-    base, queries_np, rng = make_data(seed, N)
+    base, queries_np, rng, more = make_data(seed, N)
     data = {"seconds": time.perf_counter() - t0, "n": base.shape[0],
             "d": base.shape[1], "queries": queries_np.shape[0]}
     t0 = time.perf_counter()
@@ -970,7 +1006,8 @@ def build_index(seed: int):
                    "device_bytes": index.device_bytes,
                    "medoid": int(index.graph.medoid)}
     return (index, torch.from_numpy(queries_np).cuda(),
-            {"data": data, "graph": graph_facts})
+            {"data": data, "graph": graph_facts, "base": base,
+             "more": more})
 
 
 def count_query_meta(qindex, queries, params):
@@ -993,6 +1030,234 @@ def count_query_meta(qindex, queries, params):
         out[be] = {"query_meta_calls": len(calls),
                    "global_steps": int(r.stats.steps.max()),
                    "query_rows": sorted({s[0] for s in calls})}
+    return out
+
+
+class StageClock:
+    """Seconds of the build's stages, by wrapping ``repro_torch.core.build``
+    functions with a device sync on each side: a call counts to the stage
+    of the outermost wrapped call it runs in (the reverse pass's own prunes
+    count as reverse)."""
+    STAGES = {"_candidate_pool": "candidate_search",
+              "_prune_round": "prune", "_apply_reverse": "reverse"}
+
+    def __init__(self):
+        self.seconds = {v: 0.0 for v in self.STAGES.values()}
+        self._depth = 0
+        self._real = {}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import build
+        for name, stage in self.STAGES.items():
+            real = self._real[name] = getattr(build, name)
+
+            def timed(*a, _real=real, _stage=stage, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                self._depth += 1
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    self._depth -= 1
+                    torch.cuda.synchronize()
+                    if self._depth == 0:
+                        self.seconds[_stage] += time.perf_counter() - t0
+            setattr(build, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import build
+        for name, real in self._real.items():
+            setattr(build, name, real)
+
+
+def profile_round(index, pool: str, rows: int, seed: int, smi):
+    """One build round of ``rows`` points (the ``pool`` kind: "visited" for
+    insertion, "results" for refinement) on a copy of the built graph,
+    under torch.profiler: wall time, device busy time and idle share,
+    kernel launches, the top ops by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import build
+
+    spec = index.spec
+    g = index.graph
+    cfg = build._build_search_config(spec.resolved_ef, "l2",
+                                     spec.build_backend)
+    ids = torch.from_numpy(np.random.RandomState(seed).choice(
+        g.n_nodes, size=rows, replace=False)).cuda()
+
+    def one_round():
+        nbrs = g.nbrs.clone()
+        build._process_round(nbrs, g.vectors, int(g.medoid), ids, cfg,
+                             spec.degree, spec.alpha, "l2",
+                             spec.build_batch, False, None, pool=pool)
+        torch.cuda.synchronize()
+    one_round()
+    t0 = time.perf_counter()
+    one_round()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_round()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    ops = sorted((e for e in events
+                  if e.device_type == DeviceType.CPU and dev_us(e) > 0),
+                 key=dev_us, reverse=True)
+    return {"pool": pool, "rows": rows, "wall_ms": wall,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "idle_share": 1 - busy / wall if busy > 0 else "not measured",
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_ops_device_ms": [[e.key, dev_us(e) / 1e3, e.count]
+                                  for e in ops[:8]],
+            "card": smi}
+
+
+def construct(seed: int, base, more, queries, fixture_recall, smi,
+              n_build: int):
+    """Phase 12: the port builds the index it searches, on the card.
+
+    (1) a build of 2,048 integer vectors on the card (rowgather,
+    build_batch 512) equal to the port's CPU build (ref, build_batch 32);
+    (2) the full build of the smoke's first ``n_build`` vectors, with its
+    stages' seconds, peak memory and kernel launches; (3) its speedann
+    recall@10, above the fixture graph's; (4) ``add`` of 1% new vectors,
+    each found at distance 0; (5) ``delete`` of 1% of the ids: none
+    returned, recall against the tombstone-aware ``exact`` above the
+    fixture's; (6) an hnsw build at ``N_HNSW``, whose bfis through the
+    descent equals the port's CPU search of the saved index."""
+    import torch
+    from repro_torch.ann import AnnIndex, IndexSpec
+    from repro_torch.core import recall_at_k
+
+    params = smoke_params()
+    gate = fixture_recall
+    out = {"phase": "construct", "card": smi, "recall_gate": gate}
+
+    # (1) the card against the CPU, bit for bit
+    small = make_data(seed + 2, 2048)[0]
+    t0 = time.perf_counter()
+    cpu = AnnIndex.build(small, IndexSpec(metric="l2", degree=32),
+                         device="cpu")
+    t_cpu = time.perf_counter() - t0
+    card, launches = counted(AnnIndex.build, small, IndexSpec(
+        metric="l2", degree=32, build_backend="rowgather", build_batch=512))
+    check_launches({"construct/rowgather": launches})
+    if not (torch.equal(card.graph.nbrs.cpu(), cpu.graph.nbrs)
+            and int(card.graph.medoid) == int(cpu.graph.medoid)):
+        raise AssertionError("the card build differs from the CPU build "
+                             "at N = 2048")
+    out["card_equals_cpu"] = {"n": 2048, "cpu_seconds": t_cpu,
+                              "launches": launches}
+    del cpu, card
+
+    # (2) the full build
+    spec = IndexSpec(metric="l2", degree=32, alpha=BUILD_ALPHA,
+                     build_backend="rowgather", build_batch=BUILD_BATCH)
+    x = torch.from_numpy(base[:n_build]).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock() as clock:
+        t0 = time.perf_counter()
+        index, launches = counted(AnnIndex.build, x, spec)
+        seconds = time.perf_counter() - t0
+    check_launches({"construct/rowgather": launches})
+    out["build"] = {
+        "n": n_build, "degree": 32, "alpha": BUILD_ALPHA,
+        "build_batch": BUILD_BATCH,
+        "seconds": seconds, "points_per_s": n_build / seconds,
+        "stage_seconds": clock.seconds,
+        "other_seconds": seconds - sum(clock.seconds.values()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "mean_out_degree": float((index.graph.nbrs < n_build).sum(dim=1)
+                                 .double().mean())}
+    emit(dict(out, part="build"))
+    out["round_profile"] = [profile_round(index, pool, BUILD_BATCH, seed,
+                                          smi)
+                            for pool in ("visited", "results")]
+
+    # (3) recall of the built graph
+    res = index.search(queries, params)
+    gt, _ = index.exact(queries[:256], 10)
+    recall = recall_at_k(res.ids[:256].cpu(), gt, 10)
+    out["recall_at_10"] = recall
+    out["mean_stats"] = {f: float(v.double().mean())
+                         for f, v in zip(res.stats._fields, res.stats)}
+    if not recall > gate:
+        raise AssertionError(f"built graph recall@10 {recall} not above "
+                             f"{gate}")
+
+    # (4) add 1% new vectors: each found at distance 0
+    extra = torch.from_numpy(more(n_build // 100, seed + 4)).cuda()
+    t0 = time.perf_counter()
+    new_ids, launches = counted(index.add, extra)
+    t_add = time.perf_counter() - t0
+    check_launches({"add/rowgather": launches})
+    found = torch.cat([index.search(extra[s:s + 256], params).dists[:, 0]
+                       for s in range(0, extra.shape[0], 256)])
+    at_zero = float((found == 0).double().mean())
+    out["add"] = {"n": int(extra.shape[0]), "seconds": t_add,
+                  "top1_at_distance_0": at_zero, "launches": launches}
+    if at_zero < 0.99:
+        raise AssertionError(f"add: {at_zero} of the new vectors found at "
+                             f"distance 0")
+
+    # (5) delete 1% of the ids, chosen by the seed
+    dead = np.random.RandomState(seed + 5).choice(
+        index.n_nodes, size=index.n_nodes // 100, replace=False)
+    t0 = time.perf_counter()
+    n_dead = index.delete(dead)
+    t_del = time.perf_counter() - t0
+    res = index.search(queries, params)
+    if bool(torch.isin(res.ids.cpu(), torch.from_numpy(dead)).any()):
+        raise AssertionError("delete: a deleted id was returned")
+    gt, _ = index.exact(queries[:256], 10)
+    recall_del = recall_at_k(res.ids[:256].cpu(), gt, 10)
+    out["delete"] = {"n": n_dead, "seconds": t_del,
+                     "recall_at_10": recall_del}
+    if not recall_del > gate:
+        raise AssertionError(f"recall@10 after delete {recall_del} not "
+                             f"above {gate}")
+    del index, x, extra
+    torch.cuda.empty_cache()
+
+    # (6) hnsw: build, then bfis through the descent against the CPU port
+    hspec = spec.with_(builder="hnsw")
+    t0 = time.perf_counter()
+    hindex, launches = counted(AnnIndex.build,
+                               torch.from_numpy(base[:N_HNSW]).cuda(), hspec)
+    t_hnsw = time.perf_counter() - t0
+    check_launches({"hnsw/rowgather": launches})
+    hparams = params.with_(algorithm="bfis")
+    got = hindex.search(queries[:64], hparams)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = hindex.save(os.path.join(tmp, "hnsw.npz"))
+        want = AnnIndex.load(path, device="cpu").search(queries[:64].cpu(),
+                                                        hparams)
+    if not (torch.equal(got.ids.cpu(), want.ids)
+            and torch.equal(got.dists.cpu(), want.dists)
+            and all(torch.equal(a.cpu(), b)
+                    for a, b in zip(got.stats, want.stats))):
+        raise AssertionError("hnsw bfis on the card differs from the CPU "
+                             "search of the saved index")
+    gt, _ = hindex.exact(queries[:64], 10)
+    out["hnsw"] = {"n": N_HNSW, "seconds": t_hnsw,
+                   "levels": len(hindex.hnsw.level_nbrs),
+                   "launches": launches,
+                   "bfis_equals_cpu": True,
+                   "recall_at_10_bfis_first64": recall_at_k(
+                       got.ids.cpu(), gt, 10)}
+    del hindex
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1024,9 +1289,9 @@ def main() -> int:
     from repro_torch.core import recall_at_k
     from repro_torch.kernels import _cuda
 
-    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
@@ -1166,7 +1431,17 @@ def main() -> int:
           "card": smi})
     for row in profile_backends(index, qindex, queries, smi):
         emit(row)
-    del qindex
+    del qindex, index
+    torch.cuda.empty_cache()
+
+    built = construct(args.seed, facts["base"], facts["more"], queries,
+                      recall, smi, N_BUILD)
+    emit(built)
+    for row in rows:
+        if row["name"] == "l2dist_rowgather":
+            # the construct phase's build is this kernel's second main path
+            row["launches_construct"] = \
+                built["build"]["launches"]["l2dist_rowgather"]
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -1,5 +1,6 @@
-# The port's public vector-search API: load -> search, on the CUDA device.
+# The port's public vector-search API: build | load -> search, add, delete,
+# on the CUDA device.
 from repro_torch.ann.spec import (ALGORITHMS, BUILDERS, METRICS,  # noqa: F401
                                   IndexSpec, SearchParams)
 from repro_torch.ann.index import (AnnIndex, SearchResult,  # noqa: F401
-                                   quantize_graph)
+                                   apply_entry_policy, quantize_graph)

@@ -1,19 +1,31 @@
 """``AnnIndex`` — the port's public API for vector search.
 
-Port of ``repro.ann.index`` for the search path::
+Port of ``repro.ann.index``: the whole single-device lifecycle on one
+device (CUDA unless the caller names another)::
 
-    from repro_torch.ann import AnnIndex, SearchParams
+    from repro_torch.ann import AnnIndex, IndexSpec, SearchParams
 
-    index = AnnIndex.load("idx.npz")                  # on the CUDA device
+    index = AnnIndex.build(data, IndexSpec(metric="l2", degree=32,
+                                           build_backend="rowgather",
+                                           build_batch=4096))
+    index.add(new_vectors)                            # live insert
+    index.delete(ids)                                 # tombstone + repair
+    index.save("idx.npz")
+    index = AnnIndex.load("idx.npz")
     res = index.search(queries, SearchParams(algorithm="speedann", m_max=8,
                                              backend="rowgather"))
 
-``load``/``from_arrays``/``save`` read and write the reference's npz layout
-(formats 1–3), so an index built by ``repro`` searches here unchanged and
-files round-trip both ways.  The search runs every algorithm of the
-single-device path (bfis | topm | speedann) over every distance backend and
-metric, with cosine query normalization, the tombstone mask, exact
-re-ranking and the neighbor-grouping id remap, in the reference's order.
+``build`` runs either builder (``nsg``, ``hnsw``) on the device, its
+candidate searches through ``build_backend``'s kernel; ``build_batch``
+tiles them (a larger tile is faster on the card and changes no output
+bit).  ``load``/``from_arrays``/``save`` read and write the reference's
+npz layout (formats 1–3, hnsw levels included), so an index built by
+either package searches in the other and files round-trip both ways.  The
+search runs every algorithm of the single-device path (bfis | topm |
+speedann; bfis on an hnsw index descends its upper levels first) over every
+distance backend and metric, with cosine query normalization, the
+tombstone mask, exact re-ranking and the neighbor-grouping id remap, in the
+reference's order.
 
 Quantized storage: :func:`quantize_graph` attaches int8 codes + scales (or
 bf16 codes) to a graph, and ``SearchParams(rerank_k=...)`` makes a search
@@ -36,9 +48,13 @@ import numpy as np
 import torch
 
 from repro_torch.ann.spec import IndexSpec, SearchParams
-from repro_torch.core.bfis import bfis_search_batch, search_topm_batch
-from repro_torch.core.build import exact_knn
-from repro_torch.core.graph import PaddedCSR, _flatten_top
+from repro_torch.core.bfis import (bfis_search_batch, hnsw_search_batch,
+                                   search_topm_batch)
+from repro_torch.core.build import (HNSWIndex, build_hnsw, build_nsg,
+                                    exact_knn, insert_points,
+                                    normalize_rows, repair_deleted)
+from repro_torch.core.graph import (PaddedCSR, _flatten_top, compute_medoid,
+                                    group_by_indegree, remap_sentinels)
 from repro_torch.core.queue import _sort_by
 from repro_torch.core.speedann import search_speedann_batch
 from repro_torch.device import resolve_device
@@ -49,6 +65,8 @@ _SAVE_FORMAT = 3
 
 _NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md, 'Modules to "
                "port', item {})")
+_SERVING_ITEM = 4          # ROADMAP.md §1: the serving stack
+_DISTRIBUTION_ITEM = 5     # ROADMAP.md §1: distribution
 
 
 class SearchResult(NamedTuple):
@@ -89,6 +107,17 @@ def exact_rerank(graph: PaddedCSR, q: torch.Tensor, ids: torch.Tensor,
     return ids[:, :k], d[:, :k]
 
 
+def apply_entry_policy(graph: PaddedCSR, spec: IndexSpec) -> PaddedCSR:
+    """Build-time traversal-entry selection (``IndexSpec.entry_policy``):
+    ``"max_norm"`` replaces the medoid with the max-norm vertex (the MIPS
+    seed heuristic; first of equal norms), computed on the stored vectors
+    so the entry is in internal id space."""
+    if spec.entry_policy != "max_norm":
+        return graph
+    norms = torch.linalg.vector_norm(graph.vectors.float(), dim=1)
+    return graph._replace(medoid=torch.argmax(norms).to(torch.int32))
+
+
 def quantize_graph(graph: PaddedCSR, quant) -> PaddedCSR:
     """Attach a trained quantized table (codes + scales) to a graph, on the
     graph's device.
@@ -118,22 +147,27 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 class AnnIndex:
     """A built similarity-graph index + its :class:`IndexSpec`, on one
-    device.  Construct with :meth:`load` or :meth:`from_arrays`."""
+    device.  Construct with :meth:`build`, :meth:`load` or
+    :meth:`from_arrays`."""
 
     def __init__(self, spec: IndexSpec, graph: PaddedCSR,
-                 hnsw_arrays: Optional[Mapping[str, np.ndarray]] = None,
+                 hnsw: Optional[HNSWIndex] = None,
                  old_from_new: Optional[np.ndarray] = None,
                  tombstone: Optional[np.ndarray] = None):
         self.spec = spec
         self.graph = graph
-        # the hnsw_* arrays of a file, kept so save() writes them back; the
-        # hnsw descent itself is not ported yet
-        self.hnsw_arrays = dict(hnsw_arrays) if hnsw_arrays else None
+        # the upper levels of an hnsw index (its base is ``graph``)
+        self.hnsw = hnsw
+        self._set_maps(old_from_new, tombstone)
+
+    def _set_maps(self, old_from_new, tombstone) -> None:
+        """Host copies of the grouping remap and the tombstones, their
+        tensors on the graph's device, and no cached searcher."""
         self.old_from_new = (None if old_from_new is None
                              else np.asarray(old_from_new, np.int64))
         self.tombstone = (None if tombstone is None
                           else np.asarray(tombstone, bool))
-        dev = graph.device
+        dev = self.graph.device
         self._ofn = (None if self.old_from_new is None else
                      torch.from_numpy(self.old_from_new).to(dev, torch.int32))
         self._tomb = (None if self.tombstone is None else
@@ -155,6 +189,12 @@ class AnnIndex:
         return self.spec.metric
 
     @property
+    def n_alive(self) -> int:
+        """Live (non-tombstoned) vertex count."""
+        dead = 0 if self.tombstone is None else int(self.tombstone.sum())
+        return self.n_nodes - dead
+
+    @property
     def device(self) -> torch.device:
         return self.graph.device
 
@@ -171,24 +211,191 @@ class AnnIndex:
                 f"d={self.dim}, degree={self.graph.degree}, "
                 f"device={self.device})")
 
-    # -- not ported yet ----------------------------------------------------
+    # -- build -------------------------------------------------------------
 
     @classmethod
-    def build(cls, data, spec: IndexSpec = IndexSpec()):
-        raise NotImplementedError("AnnIndex.build: " + _NOT_PORTED.format(8))
+    def build(cls, data, spec: IndexSpec = IndexSpec(),
+              device=None) -> "AnnIndex":
+        """Build an index over ``data`` ((N, d) array or tensor, or anything
+        with a ``.base`` attribute such as a dataset) on ``device`` (default
+        CUDA).  For ``metric="cosine"`` the base vectors are unit-normalized
+        and stored normalized; queries are normalized at search time."""
+        if not isinstance(data, (np.ndarray, torch.Tensor)) \
+                and getattr(data, "base", None) is not None:
+            data = data.base
+        dev = resolve_device(device)
+        x = (data if isinstance(data, torch.Tensor) else torch.from_numpy(
+            np.asarray(data, np.float32))).to(dev, torch.float32)
+        if x.dim() != 2:
+            raise ValueError(f"data must be (N, d), got {tuple(x.shape)}")
+        if spec.metric == "cosine":
+            x = normalize_rows(x)
+        build_metric = "l2" if spec.metric == "cosine" else spec.metric
 
-    def add(self, new_vectors):
-        raise NotImplementedError("AnnIndex.add: " + _NOT_PORTED.format(8))
+        if spec.builder == "hnsw":
+            hnsw = build_hnsw(x, degree=spec.degree,
+                              upper_degree=spec.upper_degree,
+                              seed=spec.seed, alpha=spec.alpha,
+                              metric=build_metric,
+                              build_batch=spec.build_batch,
+                              build_backend=spec.build_backend, device=dev)
+            base = apply_entry_policy(
+                quantize_graph(hnsw.base, spec.quant), spec)
+            return cls(spec, base, hnsw=hnsw._replace(base=base))
 
-    def delete(self, ids):
-        raise NotImplementedError("AnnIndex.delete: " + _NOT_PORTED.format(8))
+        graph = build_nsg(x, degree=spec.degree,
+                          knn_k=spec.resolved_knn_k, alpha=spec.alpha,
+                          ef_construction=spec.resolved_ef, seed=spec.seed,
+                          passes=spec.passes, metric=build_metric,
+                          build_batch=spec.build_batch,
+                          build_backend=spec.build_backend, device=dev)
+        old_from_new = None
+        if spec.n_top_fraction > 0:
+            graph, ofn = group_by_indegree(
+                graph.nbrs, graph.vectors, medoid=int(graph.medoid),
+                top_fraction=spec.n_top_fraction)
+            old_from_new = _host(ofn)
+        graph = apply_entry_policy(quantize_graph(graph, spec.quant), spec)
+        return cls(spec, graph, old_from_new=old_from_new)
+
+    # -- incremental maintenance -------------------------------------------
+
+    def _build_metric(self) -> str:
+        return "l2" if self.spec.metric == "cosine" else self.spec.metric
+
+    def add(self, new_vectors) -> np.ndarray:
+        """Insert new vectors into the live index without a rebuild, on the
+        index's device: the same batched insertion as construction
+        (:func:`repro_torch.core.build.insert_points`) against the live
+        graph.  Cosine inputs are normalized here; quantized indices encode
+        the new rows (per-vector scales fit per new row, per-dim scales
+        reused, so existing codes stay bit-identical); the flattened top
+        level is rebuilt.  Returns the assigned ids (original id space)."""
+        if self.spec.builder == "hnsw":
+            raise NotImplementedError(
+                "incremental add() is supported for the nsg builder only "
+                "(the hnsw upper levels would need re-sampling)")
+        dev = self.device
+        new = (new_vectors if isinstance(new_vectors, torch.Tensor)
+               else torch.from_numpy(np.asarray(new_vectors, np.float32))
+               ).to(dev, torch.float32)
+        if new.dim() == 1:
+            new = new[None, :]
+        if new.dim() != 2 or new.shape[1] != self.dim:
+            raise ValueError(f"new vectors must be (K, {self.dim}), got "
+                             f"{tuple(new.shape)}")
+        if new.shape[0] == 0:
+            return np.zeros((0,), np.int64)
+        if self.spec.metric == "cosine":
+            new = normalize_rows(new)
+
+        spec, quant, g = self.spec, self.spec.quant, self.graph
+        n_old = self.n_nodes
+        n_new = n_old + new.shape[0]
+        # the sentinel changes value with N: rewrite the old rows' padding
+        # BEFORE the table grows
+        nbrs = torch.full((n_new, g.degree), n_new, dtype=torch.int32,
+                          device=dev)
+        nbrs[:n_old] = remap_sentinels(g.nbrs, n_old, n_new)
+        codes = scales = None
+        store_new = new
+        if quant.enabled:
+            if quant.dtype == "int8" and not quant.per_dim:
+                s_new = quant_codec.fit_scales(new, quant)
+                scales = torch.cat([g.scales, s_new.float()])
+            else:
+                s_new = scales = g.scales
+            c_new = quant_codec.quantize(new, quant, s_new)
+            codes = torch.cat([g.codes, c_new])
+            if not quant.keep_float:
+                store_new = quant_codec.dequantize(c_new, quant, s_new)
+        vectors = torch.cat([g.vectors.float(), store_new])
+        new_ids = np.arange(n_old, n_new, dtype=np.int64)
+        insert_points(
+            nbrs, vectors, int(g.medoid), new_ids, n_old,
+            degree=spec.degree, alpha=spec.alpha, ef=spec.resolved_ef,
+            metric=self._build_metric(), build_batch=spec.build_batch,
+            build_backend=spec.build_backend)
+        self.graph = apply_entry_policy(PaddedCSR(
+            nbrs=nbrs, vectors=vectors, medoid=g.medoid, n_top=g.n_top,
+            flat=_flatten_top(nbrs, vectors, g.n_top), codes=codes,
+            scales=scales), spec)
+        ofn = (None if self.old_from_new is None else
+               np.concatenate([self.old_from_new, new_ids]))
+        tomb = (None if self.tombstone is None else np.concatenate(
+            [self.tombstone, np.zeros(new_ids.shape[0], bool)]))
+        self._set_maps(ofn, tomb)
+        return new_ids
+
+    def delete(self, ids) -> int:
+        """Tombstone vertices and repair their neighborhoods in place, on
+        the index's device (:func:`repro_torch.core.build.repair_deleted`).
+        Tombstoned rows stay navigable; every search and ``exact`` masks
+        them.  Returns the number of newly deleted vertices; already-deleted
+        and duplicate ids are ignored; deleting every remaining vertex is
+        refused.  A deleted entry vertex is re-elected among survivors."""
+        if self.spec.builder == "hnsw":
+            raise NotImplementedError(
+                "incremental delete() is supported for the nsg builder only")
+        ids = np.unique(np.asarray(ids, np.int64).ravel())
+        if ids.shape[0] == 0:
+            return 0
+        n = self.n_nodes
+        if self.old_from_new is not None:
+            # callers speak original ids; tombstones live in internal space
+            new_from_old = np.empty(self.old_from_new.shape[0], np.int64)
+            new_from_old[self.old_from_new] = np.arange(
+                self.old_from_new.shape[0])
+            if ids[0] < 0 or ids[-1] >= new_from_old.shape[0]:
+                raise ValueError(f"ids out of range [0, "
+                                 f"{new_from_old.shape[0]})")
+            internal = new_from_old[ids]
+        else:
+            if ids[0] < 0 or ids[-1] >= n:
+                raise ValueError(f"ids out of range [0, {n})")
+            internal = ids
+        tomb = (self.tombstone.copy() if self.tombstone is not None
+                else np.zeros(n, bool))
+        fresh = internal[~tomb[internal]]
+        if fresh.shape[0] == 0:
+            return 0
+        if int(tomb.sum()) + fresh.shape[0] >= n:
+            raise ValueError("delete() would tombstone every vertex; "
+                             "drop the index instead")
+        tomb[fresh] = True
+
+        spec, g = self.spec, self.graph
+        nbrs = g.nbrs.clone()
+        vectors = g.vectors.float()
+        repair_deleted(nbrs, vectors, tomb, degree=spec.degree,
+                       alpha=spec.alpha, metric=self._build_metric())
+        medoid = g.medoid
+        if tomb[int(medoid)]:
+            # the entry vertex died: re-elect among survivors (the row
+            # itself stays a navigable waypoint)
+            if spec.entry_policy == "max_norm":
+                norms = torch.linalg.vector_norm(vectors, dim=1)
+                dead = torch.from_numpy(tomb).to(norms.device)
+                best = torch.argmax(torch.where(dead, -float("inf"), norms))
+            else:
+                best = compute_medoid(vectors, metric=self._build_metric(),
+                                      alive=~tomb)
+            medoid = torch.tensor(int(best), dtype=torch.int32,
+                                  device=self.device)
+        self.graph = g._replace(nbrs=nbrs, medoid=medoid,
+                                flat=_flatten_top(nbrs, g.vectors, g.n_top))
+        self._set_maps(self.old_from_new, tomb)
+        return int(fresh.shape[0])
+
+    # -- not ported yet ----------------------------------------------------
 
     def serve(self, *args, **kw):
-        raise NotImplementedError("AnnIndex.serve: " + _NOT_PORTED.format(7))
+        raise NotImplementedError(
+            "AnnIndex.serve: " + _NOT_PORTED.format(_SERVING_ITEM))
 
     def serve_async(self, *args, **kw):
         raise NotImplementedError(
-            "AnnIndex.serve_async: " + _NOT_PORTED.format(7))
+            "AnnIndex.serve_async: " + _NOT_PORTED.format(_SERVING_ITEM))
 
     # -- persistence -------------------------------------------------------
 
@@ -237,8 +444,13 @@ class AnnIndex:
             arrays["old_from_new"] = self.old_from_new
         if has_tomb:
             arrays["tombstone"] = self.tombstone
-        if self.hnsw_arrays:
-            arrays.update(self.hnsw_arrays)
+        if self.hnsw is not None:
+            arrays["hnsw_entry"] = np.int64(self.hnsw.entry)
+            arrays["hnsw_num_levels"] = np.int64(len(self.hnsw.level_nbrs))
+            for i, (ln, nn) in enumerate(zip(self.hnsw.level_nbrs,
+                                             self.hnsw.level_nodes)):
+                arrays[f"hnsw_level_nbrs_{i}"] = _host(ln)
+                arrays[f"hnsw_level_nodes_{i}"] = _host(nn)
         np.savez(path, **arrays)
         return path
 
@@ -284,14 +496,22 @@ class AnnIndex:
             codes=codes,
             scales=scales,
         )
-        hnsw = {k: np.asarray(arrays[k]) for k in arrays
-                if k.startswith("hnsw_")}
+        hnsw = None
+        if "hnsw_entry" in arrays:
+            n_levels = int(arrays["hnsw_num_levels"])
+            hnsw = HNSWIndex(
+                base=graph,
+                level_nbrs=tuple(up(arrays[f"hnsw_level_nbrs_{i}"])
+                                 for i in range(n_levels)),
+                level_nodes=tuple(up(arrays[f"hnsw_level_nodes_{i}"])
+                                  for i in range(n_levels)),
+                entry=int(arrays["hnsw_entry"]))
         old_from_new = (np.asarray(arrays["old_from_new"])
                         if "old_from_new" in arrays else None)
         tombstone = (np.asarray(arrays["tombstone"], bool)
                      if "tombstone" in arrays else None)
-        return cls(spec, graph, hnsw_arrays=hnsw or None,
-                   old_from_new=old_from_new, tombstone=tombstone)
+        return cls(spec, graph, hnsw=hnsw, old_from_new=old_from_new,
+                   tombstone=tombstone)
 
     @classmethod
     def load(cls, path: str, device=None) -> "AnnIndex":
@@ -319,13 +539,16 @@ class AnnIndex:
         algorithm = params.algorithm
         if algorithm == "sharded":
             raise NotImplementedError(
-                "algorithm='sharded': " + _NOT_PORTED.format(9))
-        if algorithm == "bfis" and self.hnsw_arrays:
-            raise NotImplementedError(
-                "algorithm='bfis' on an hnsw index (hnsw_search_batch): "
-                + _NOT_PORTED.format(5))
-        run = {"bfis": bfis_search_batch, "topm": search_topm_batch,
-               "speedann": search_speedann_batch}[algorithm]
+                "algorithm='sharded': " + _NOT_PORTED.format(
+                    _DISTRIBUTION_ITEM))
+        hnsw = self.hnsw
+        if algorithm == "bfis" and hnsw is not None:
+            # greedy upper-level descent, then Algorithm 1 at level 0
+            def run(g, q, cfg):
+                return hnsw_search_batch(hnsw._replace(base=g), q, cfg)
+        else:
+            run = {"bfis": bfis_search_batch, "topm": search_topm_batch,
+                   "speedann": search_speedann_batch}[algorithm]
 
         metric = self.spec.metric
         cfg = params.to_search_config(metric)

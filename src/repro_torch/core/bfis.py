@@ -270,3 +270,56 @@ def bfis_search_batch(graph, queries, cfg: SearchConfig, **kw):
     """Algorithm 1 (the NSG baseline): top-M search with M=1, no staging."""
     return search_topm_batch(
         graph, queries, cfg.with_(m_max=1, staged=False), **kw)
+
+
+# ---------------------------------------------------------------------------
+# HNSW-style hierarchical search (the paper's second baseline)
+# ---------------------------------------------------------------------------
+
+def greedy_descent(level_nbrs: torch.Tensor, vectors: torch.Tensor,
+                   entry: torch.Tensor, queries: torch.Tensor,
+                   max_hops: int = 64, metric: str = "l2") -> torch.Tensor:
+    """Greedy walk on one upper level for a (B, d) query batch: every lane
+    hops to its closest neighbor until a local minimum (HNSW's ef=1
+    upper-level search).  All lanes hop in lockstep; a lane stops when it
+    no longer moves, every lane after ``max_hops`` hops.  ``entry`` is (B,)
+    int32; returns the (B,) int32 lane positions.  The first of equal
+    minima wins, as ``jnp.argmin`` picks it."""
+    n = vectors.shape[0]
+    qf = queries.float()
+    cur = entry.to(torch.int32)
+    v = vectors[cur.long().clamp(max=n - 1)]
+    cur_d = torch.where(cur < n, point_dist(v, qf, metric), float("inf"))
+    moved = torch.ones_like(cur, dtype=torch.bool)
+    for _ in range(max_hops):
+        if not bool(moved.any()):
+            break
+        nb = level_nbrs[cur.long()]                             # (B, R_l)
+        vecs = vectors[nb.long().clamp(max=n - 1)].float()      # (B, R_l, d)
+        if metric in ("ip", "cosine"):
+            d = -torch.sum(vecs * qf[:, None, :], dim=-1)
+        else:
+            d = torch.sum((vecs - qf[:, None, :]) ** 2, dim=-1)
+        d = torch.where(nb < n, d, float("inf"))
+        j = torch.argmin(d, dim=1, keepdim=True)
+        best = d.gather(1, j)[:, 0]
+        moved = moved & (best < cur_d)
+        cur = torch.where(moved, nb.gather(1, j)[:, 0], cur)
+        cur_d = torch.where(moved, best, cur_d)
+    return cur
+
+
+def hnsw_search_batch(index, queries: torch.Tensor, cfg: SearchConfig,
+                      dist_fn: Optional[DistFn] = None):
+    """HNSW baseline: greedy descent through the upper levels (top level
+    first), then the batch-major BFiS at level 0 from the per-query entry
+    points."""
+    base = index.base
+    cur = torch.full((queries.shape[0],), int(index.entry),
+                     dtype=torch.int32, device=base.device)
+    for lvl in range(len(index.level_nbrs) - 1, -1, -1):
+        cur = greedy_descent(index.level_nbrs[lvl], base.vectors, cur,
+                             queries, metric=cfg.metric)
+    return search_topm_batch(
+        base, queries, cfg.with_(m_max=1, staged=False), start=cur,
+        dist_fn=dist_fn)

@@ -2,7 +2,8 @@
 
 The index is a *padded* CSR — a dense ``(N, R)`` int32 neighbor table
 (padding = sentinel ``N``) — plus the ``(N, d)`` embedding table, both as
-tensors on one device.  Neighbor grouping (§4.4) adds the flattened
+tensors on one device.  Neighbor grouping (§4.4) re-labels vertices by
+in-degree (or measured access frequency) and adds the flattened
 ``flat[(n_top, R, d)]`` neighbor embeddings of the ``n_top`` hottest
 vertices, so expanding a hot vertex reads one contiguous block.
 """
@@ -148,3 +149,73 @@ def fetch_neighbor_vectors(graph: PaddedCSR, active_ids: torch.Tensor,
     hot = active_ids < graph.n_top                           # (..., M)
     flat = graph.flat[active_ids.long().clamp(0, graph.n_top - 1)]
     return torch.where(hot[..., None, None], flat, gathered)
+
+
+def remap_sentinels(nbrs: torch.Tensor, old_n: int,
+                    new_n: int) -> torch.Tensor:
+    """Rewrite padding entries when the node count changes (incremental
+    add): every out-of-range id (>= old_n or < 0) becomes the new sentinel
+    ``new_n``.  Must run BEFORE the neighbor table grows.  Returns a new
+    int32 tensor."""
+    return torch.where((nbrs < 0) | (nbrs >= old_n), new_n,
+                       nbrs).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Neighbor grouping (§4.4): vertex re-labelling strategies
+# ---------------------------------------------------------------------------
+
+def _rank_of(score: torch.Tensor) -> torch.Tensor:
+    """old_id -> rank (0 = highest score), ties by old id."""
+    order = torch.sort(-score, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    return rank
+
+
+def indegree_rank(nbrs: torch.Tensor) -> torch.Tensor:
+    """Degree-centric ranking: permutation old_id -> rank (0 = hottest)."""
+    n = nbrs.shape[0]
+    return _rank_of(torch.bincount(nbrs[nbrs < n].long(), minlength=n))
+
+
+def frequency_rank(nbrs: torch.Tensor, access_counts) -> torch.Tensor:
+    """Frequency-centric ranking from measured query-time access counts."""
+    return _rank_of(torch.as_tensor(access_counts, device=nbrs.device))
+
+
+def relabel(nbrs: torch.Tensor, vectors: torch.Tensor, rank: torch.Tensor):
+    """Apply a vertex re-labelling: new_id = rank[old_id].  Returns
+    (new_nbrs int32, new_vectors, old_from_new int64); ``old_from_new`` maps
+    search results back to original ids."""
+    n = nbrs.shape[0]
+    old_from_new = torch.sort(rank, stable=True).indices
+    remap = torch.cat([rank.long(), torch.tensor([n], device=rank.device)])
+    safe = torch.where((nbrs >= 0) & (nbrs <= n), nbrs, n).long()
+    new_nbrs = remap[safe][old_from_new]
+    return new_nbrs.to(torch.int32), vectors[old_from_new], old_from_new
+
+
+def group_by_indegree(nbrs: torch.Tensor, vectors: torch.Tensor,
+                      medoid: Optional[int] = None,
+                      top_fraction: float = 0.001):
+    """Full degree-centric neighbor-grouping pipeline (paper's default), on
+    the tensors' device.  Returns (PaddedCSR with flattened top level,
+    old_from_new permutation)."""
+    rank = indegree_rank(nbrs)
+    new_nbrs, new_vectors, old_from_new = relabel(nbrs, vectors, rank)
+    n_top = max(1, int(round(nbrs.shape[0] * top_fraction)))
+    if medoid is not None:
+        medoid = int(rank[medoid])
+    csr = make_padded_csr(new_nbrs, new_vectors, medoid=medoid, n_top=n_top,
+                          device=nbrs.device)
+    return csr, old_from_new
+
+
+def top_level_hit_fraction(graph: PaddedCSR,
+                           active_ids: torch.Tensor) -> torch.Tensor:
+    """Fraction of expansions served by the flattened top level
+    (profiling)."""
+    valid = active_ids < graph.n_nodes
+    hits = (active_ids < graph.n_top) & valid
+    return hits.sum() / torch.clamp(valid.sum(), min=1)

@@ -3,7 +3,8 @@
 The f32 gather-distance kernels to 1e-5 (exact on integer data); the int8
 kernels bit for bit; the bitonic co-sort exactly at every row length, and
 the frontier merge on it equal to ``queue.insert``; the gather kernels and
-searches through them past 65,535 query rows.
+searches through them past 65,535 query rows; index builds, live updates,
+the α-prune and the hnsw descent on the card equal to the CPU's.
 
 Every test here needs a CUDA device (the kernels are CUDA C++ with no CPU
 mode) and skips without one.  The file imports no JAX, so it also runs on a
@@ -15,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.ann import quantize_graph
-from repro_torch.core import knn_graph, make_padded_csr
-from repro_torch.core.bfis import search_topm_batch
+from repro_torch.ann import AnnIndex, IndexSpec, quantize_graph
+from repro_torch.core import (build_hnsw, exact_knn, knn_graph,
+                              make_padded_csr, robust_prune_batch)
+from repro_torch.core.bfis import hnsw_search_batch, search_topm_batch
 from repro_torch.core.config import SearchConfig
 from repro_torch.core.queue import INVALID_ID, Frontier, insert
 from repro_torch.core.speedann import search_speedann_batch
@@ -572,3 +574,116 @@ def test_sort_pairs_exact_at_every_length(cuda_device, n):
     assert _cuda.LAUNCHES["sort_pairs"] == before + 1
     for g, w in zip(got, sort_pairs_ref(keys, p0, p1)):
         assert torch.equal(g, w)
+
+
+# -- graph construction, live updates and the hnsw descent on the card --------
+
+BUILD_N = 2048
+
+
+@pytest.fixture(scope="module")
+def cpu_built():
+    """The CPU build (plain ``ref`` backend, build_batch 32) of 2,048
+    integer vectors, its 1% add and its deletes: what every card build must
+    equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card build is compared with "
+                    "the CPU build")
+    rng = np.random.RandomState(21)
+    x = rng.randint(0, 256, size=(BUILD_N, 16)).astype(np.float32)
+    extra = rng.randint(0, 256, size=(BUILD_N // 100, 16)).astype(np.float32)
+    dead = rng.choice(BUILD_N, size=BUILD_N // 100, replace=False)
+    idx = AnnIndex.build(x, IndexSpec(degree=16, build_batch=32),
+                         device="cpu")
+    graph = (idx.graph.nbrs.clone(), int(idx.graph.medoid))
+    idx.add(extra)
+    added = idx.graph.nbrs.clone()
+    idx.delete(dead)
+    return x, extra, dead, graph, added, (idx.graph.nbrs.clone(),
+                                          int(idx.graph.medoid))
+
+
+@pytest.mark.parametrize("backend", ["rowgather", "dma", "dedup_gather"])
+def test_build_on_card_equals_cpu_build(cuda_device, cpu_built, backend):
+    x, extra, dead, (nbrs, medoid), added, (after, medoid2) = cpu_built
+    kernel = {"rowgather": "l2dist_rowgather", "dma": "l2dist_dma",
+              "dedup_gather": "dedupdist"}[backend]
+    _cuda.reset_launches()
+    idx = AnnIndex.build(x, IndexSpec(degree=16, build_batch=512,
+                                      build_backend=backend))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[kernel] > 0
+    assert sum(_cuda.LAUNCHES.values()) == _cuda.LAUNCHES[kernel]
+    assert idx.device.type == "cuda"
+    assert torch.equal(idx.graph.nbrs.cpu(), nbrs)
+    assert int(idx.graph.medoid) == medoid
+    idx.add(extra)
+    assert torch.equal(idx.graph.nbrs.cpu(), added)
+    idx.delete(dead)
+    assert torch.equal(idx.graph.nbrs.cpu(), after)
+    assert int(idx.graph.medoid) == medoid2
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_robust_prune_on_card_equals_cpu(cuda_device, metric):
+    rng = np.random.RandomState(22)
+    x = torch.from_numpy(rng.randint(0, 256, size=(5000, 128))
+                         .astype(np.float32))
+    nodes = torch.from_numpy(rng.randint(0, 5000, size=300))
+    cand = torch.from_numpy(np.sort(rng.randint(0, 5600, size=(300, 700)),
+                                    axis=1).astype(np.int32))
+    cand = torch.where(cand >= 5000, 5000, cand)
+    want = robust_prune_batch(x, nodes, cand, 32, 1.2, metric=metric)
+    got = robust_prune_batch(x.cuda(), nodes.cuda(), cand.cuda(), 32, 1.2,
+                             metric=metric)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_hnsw_on_card_equals_cpu(cuda_device):
+    rng = np.random.RandomState(23)
+    x = rng.randint(0, 256, size=(1500, 32)).astype(np.float32)
+    q = torch.from_numpy(rng.randint(0, 256, size=(64, 32))
+                         .astype(np.float32))
+    kw = dict(degree=16, upper_degree=8, ml=0.5, build_batch=256,
+              build_backend="rowgather")
+    want = build_hnsw(x, device="cpu", **kw)
+    got = build_hnsw(x, **kw)
+    assert got.entry == want.entry
+    for a, b in zip(want.level_nbrs + want.level_nodes,
+                    got.level_nbrs + got.level_nodes):
+        assert torch.equal(b.cpu(), a)
+    assert torch.equal(got.base.nbrs.cpu(), want.base.nbrs)
+    cfg = SearchConfig(k=10, queue_len=32, dist_backend="rowgather")
+    a = hnsw_search_batch(want, q, cfg)
+    b = hnsw_search_batch(got, q.cuda(), cfg)
+    for w, g in zip(a[:2] + tuple(a[2]), b[:2] + tuple(b[2])):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("allow", ["allow_tf32", "precision_high"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_exact_knn_on_card_ignores_tf32(cuda_device, metric, allow):
+    # exact_knn's products run at full f32 precision even where the process
+    # allows TF32 (by either of torch's switches), so the hnsw upper levels
+    # do not depend on that setting; the setting is given back
+    rng = np.random.RandomState(24)
+    x = torch.from_numpy(rng.normal(size=(4096, 128)).astype(np.float32)
+                         ).cuda()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = exact_knn(x, x[:512], 24, metric=metric)
+    try:
+        if allow == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        got = exact_knn(x, x[:512], 24, metric=metric)
+        assert torch.backends.cuda.matmul.allow_tf32
+        if allow == "precision_high":
+            assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        if allow == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        else:
+            torch.set_float32_matmul_precision("highest")
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])

@@ -129,14 +129,32 @@ def test_exact_matches_reference(files, data, name):
 def test_not_ported_paths_raise(files, data, tmp_path):
     x, q = data
     l2 = TIndex.load(files["l2"][1], device="cpu")
-    for call in (lambda: TIndex.build(x, TSpec()), lambda: l2.add(x[:2]),
-                 lambda: l2.delete([1]), lambda: l2.serve(),
-                 lambda: l2.search(q, TParams(algorithm="sharded"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # serving and distribution are not ported: they raise, naming their
+    # ROADMAP item
+    for call, item in ((lambda: l2.serve(), 4), (lambda: l2.serve_async(), 4),
+                       (lambda: l2.search(q, TParams(algorithm="sharded")),
+                        5)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.*item {item}"):
             call()
-    hnsw = TIndex.load(files["hnsw"][1], device="cpu")
-    with pytest.raises(NotImplementedError, match="hnsw"):
-        hnsw.search(q, TParams(algorithm="bfis"))
+    # build, add, delete and bfis on an hnsw file are ported: each equals
+    # the reference
+    spec = dict(degree=12, passes=1, metric="l2")
+    ref, got = JIndex.build(x, JSpec(**spec)), TIndex.build(
+        x, TSpec(**spec), device="cpu")
+    np.testing.assert_array_equal(got.graph.nbrs.numpy(),
+                                  np.asarray(ref.graph.nbrs))
+    np.testing.assert_array_equal(got.add(x[:2] + 1), ref.add(x[:2] + 1))
+    assert got.delete([1]) == ref.delete([1])
+    np.testing.assert_array_equal(got.graph.nbrs.numpy(),
+                                  np.asarray(ref.graph.nbrs))
+    _same(ref.search(q, JParams(**PARAMS)),
+          got.search(q, TParams(**PARAMS)), "l2")
+    hnsw_ref, hnsw_path = files["hnsw"]
+    hnsw = TIndex.load(hnsw_path, device="cpu")
+    params = dict(PARAMS, algorithm="bfis")
+    _same(hnsw_ref.search(q, JParams(**params)),
+          hnsw.search(q, TParams(**params)), "l2")
     # the quantized path is ported: a bf16 index searches through
     # ref_bf16, a keep_float=False file loads, and a backend of another
     # dtype raises ValueError as in the reference
