@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's Speed-ANN search and build paths on one GPU.
+"""Run the port's Speed-ANN search, serving and build paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--profile-src DIR]
 
@@ -10,7 +10,9 @@ Phases, one JSON line each:
   3. kernels — each kernel against its plain torch version: the f32
                gather-distance kernels at the search path's shapes (N = 1M,
                d = 128; B·W = 512 × C = 32 and B = 64 × C = 256) and the
-               construct phase's (B = 8,192 × C = 128), plus
+               construct phase's (B = 8,192 × C = 128) and the serving
+               buckets' speedann calls (b × 32 and 8·b × 32, b = 1..32),
+               plus
                d = 960, a bf16 table, padding ids, a ragged C, C = 1000
                (dma's chunked runs), and integer data held to exact
                equality, dma also to rowgather; the int8 kernels bit for
@@ -66,7 +68,37 @@ Phases, one JSON line each:
                dedup_gather_int8: wall time, device busy time and idle
                share, kernel launches, the distance kernel's calls and mean
                time, the top ops by device time;
- 12. construct — the port builds the index it searches, on the card:
+ 12. serve   — the serving stack on the 1M fixture index and its int8
+               copy: ``index.serve`` through rowgather with the default
+               buckets, warmed (seconds per bucket), requests of 1, 3, 17,
+               64 and 100 queries (100 is two chunks) each equal to
+               ``index.search`` (ids, dists and the counters; the
+               batch-relative pair where the request was padded obeys
+               uniq + dup = dist_comps) and launching l2dist_rowgather only,
+               at (B, C) shapes phase 3 held against the plain version;
+               one request of 64 through dma, dedup_gather, rowgather_int8
+               and dedup_gather_int8 (rerank_k = 30), each equal to
+               ``index.search`` and launching its own kernel only; per
+               bucket p50 and max of SERVE_REPS timed requests, and p99
+               where there are 100 (buckets 1-8); ``serve_async``
+               (max_wait 2 ms) on its dispatcher thread fed the 264
+               queries one at a time, four times over, with Poisson gaps
+               from --seed at half the rate the 64-bucket sustains on real
+               queries, every answer equal to the direct single-query
+               search and the served rate at least 90% of the offered
+               (latency p50/p99, queue wait, mean batch, queries/s); a
+               cached server given 64 of them twice, the second 64 all
+               hits and equal; a ReplicaRouter of two engines with a hedge
+               after half the single-query p50, 64 single queries from 4
+               client threads, each equal to its direct search, each
+               resolved once, hedges counted; one request of 64 with
+               tracing, metrics and the profiler bridge under
+               torch.profiler: the trace passes scripts/check_trace.py
+               (device_compute and postprocess inside engine.search), the
+               ann_dispatch/bucket64 range holds every rowgather launch,
+               and the device idle share (busy under the profiler over the
+               wall time without it);
+ 13. construct — the port builds the index it searches, on the card:
                AnnIndex.build of 2,048 integer vectors with rowgather and
                build_batch 512 equal (graph bytes and medoid) to the CPU
                build with ref and build_batch 32; the build of the first
@@ -101,6 +133,7 @@ CUDA device; exits non-zero on any failure.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -138,6 +171,17 @@ BUILD_BATCH = 8192            # the builds' candidate-search tile
 # the searches cannot navigate the graph; α = 1 prunes them
 # (scripts/torch_build_witness.py builds the default α with both packages).
 BUILD_ALPHA = 1.0
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)   # AnnEngine's default buckets
+# the f32 gather kernels' (B, C) in phase 3: speedann's step (B·W = 512 ×
+# R = 32) and topm's (64 × M·R = 256); 250 ragged; 300 × 1000, where dma
+# copies its runs in chunks; the construct phase's candidate searches
+# (BUILD_BATCH rows × C = m_max 4 × R 32); and speedann's calls at every
+# serving bucket below 64, which the serve phase's requests launch: the
+# entry's expansion (b queries × R) and the walkers' step (8·b × R)
+GATHER_SHAPES = ([(512, 32), (64, 256), (64, 250), (300, 1000),
+                  (BUILD_BATCH, 128)]
+                 + sorted({(w * b, 32) for b in SERVE_BUCKETS if b < 64
+                           for w in (1, 8)} - {(512, 32)}))
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "l2dist_rowgather": ("src/repro_torch/csrc/rowgather.cu",
@@ -295,17 +339,13 @@ def check_kernels(seed: int):
     }
     tables["bf16_d128"] = tables["f32_d128"].to(torch.bfloat16)
     tables["bf16_d960"] = tables["f32_d960"].to(torch.bfloat16)
-    # 250: ragged; 300 x 1000: dma copies its runs in chunks; the construct
-    # phase's candidate searches: BUILD_BATCH rows x C = m_max 4 x R 32
-    shapes = [(512, 32), (64, 256), (64, 250), (300, 1000),
-              (BUILD_BATCH, 128)]
     err = {k: 0.0 for k in kern}
     cases = 0
     for tname, table in tables.items():
         tol = 2e-2 if tname.startswith("bf16") else 1e-5
         exact = tname.startswith("int")
         rows, d = table.shape
-        for b, c in shapes:
+        for b, c in GATHER_SHAPES:
             ids = random_ids(gen, rows, b, c)
             if tname.startswith("int"):
                 q = torch.randint(0, 256, (b, d), generator=gen,
@@ -408,7 +448,9 @@ def check_quant_sort_kernels(seed: int):
         scales = fit_scales(x, spec)
         codes = quantize(x, spec, scales)
         del x
-        for b, c in ((512, 32), (64, 256), (64, 250), (300, 1000)):
+        # (64, 32): speedann's entry expansion at bucket 64
+        for b, c in ((512, 32), (64, 32), (64, 256), (64, 250),
+                     (300, 1000)):
             ids = random_ids(gen, rows, b, c)
             q = torch.randn((b, d), generator=gen, device="cuda")
             q[0] = 0.0                                   # a zero query
@@ -962,6 +1004,328 @@ def kernel_times(index, qindex, queries, smi):
                 card=smi)
 
 
+SERVE_SIZES = (1, 3, 17, 64, 100)   # engine requests; 100 is two chunks
+# timed requests per bucket: 100 where a request is quick (buckets 1-8,
+# ~0.1-0.2 s), so that its p99 is a tail; 20 above, which report p50 and
+# max only
+SERVE_REPS = {1: 100, 2: 100, 4: 100, 8: 100, 16: 20, 32: 20, 64: 20}
+TAIL_MIN = 100                      # fewer requests report no p99
+COALESCE_PASSES = 4                 # the 264 queries, offered this often
+
+
+def served_equals(got, want, exact_relative: bool) -> bool:
+    """An engine's ``ServeResult`` against ``index.search`` of the same
+    queries: ids, dists and the counters bit for bit; the batch-relative
+    pair (``uniq_comps``, ``batch_dup_comps``) only when the request filled
+    its bucket, else ``uniq + dup == dist_comps`` per lane."""
+    ok = (np.array_equal(got.ids, want.ids.cpu().numpy())
+          and np.array_equal(got.dists, want.dists.cpu().numpy()))
+    for name, w, g in zip(want.stats._fields, want.stats, got.stats):
+        if exact_relative or name not in want.stats.BATCH_RELATIVE:
+            ok = ok and np.array_equal(g, w.cpu().numpy())
+    s = got.stats
+    return ok and np.array_equal(s.uniq_comps + s.batch_dup_comps,
+                                 s.dist_comps)
+
+
+def load_check_trace():
+    """``scripts/check_trace.py`` of this checkout, as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", os.path.join(ROOT, "scripts", "check_trace.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def recording_shapes(seen: set):
+    """While open, every ``l2dist_rowgather`` call made through
+    ``kernels.ops`` (every f32 rowgather DistFn) adds its ids' (B, C) to
+    ``seen``."""
+    import importlib
+    # the module, not the package's ``l2dist`` function of the same name
+    l2dist = importlib.import_module("repro_torch.kernels.l2dist")
+    inner = l2dist.l2dist_rowgather
+
+    def recorded(table, ids, queries, **kw):
+        seen.add(tuple(ids.shape))
+        return inner(table, ids, queries, **kw)
+    l2dist.l2dist_rowgather = recorded
+    try:
+        yield seen
+    finally:
+        l2dist.l2dist_rowgather = inner
+
+
+def serve_engine(index, qindex, queries, params, qparams):
+    """Phase 12 (1)-(2): the engine's requests of SERVE_SIZES through
+    rowgather, then one request of 64 through each other kernel backend,
+    each equal to ``index.search`` and launching its backend's kernel
+    only; SERVE_REPS timed requests a bucket (p50, max, and p99 where there
+    are TAIL_MIN).  Every (B, C) the rowgather requests launch must be one
+    that phase 3 held against the plain version.  Returns (facts, path
+    launches, engine)."""
+    engine = index.serve(params)
+    if tuple(engine.bucket_sizes) != SERVE_BUCKETS:
+        raise AssertionError(f"buckets {engine.bucket_sizes}")
+    facts = {"warmup_seconds": {str(b): s for b, s in
+                                engine.warmup().items()}}
+    path_launches, lo, seen, timed = {}, 0, set(), {}
+    nq = queries.shape[0]
+    for n in SERVE_SIZES:
+        req = queries[lo:lo + n]
+        with recording_shapes(seen):
+            got, path_launches[f"engine{n}/rowgather"] = counted(
+                engine.search, req)
+        if not served_equals(got, index.search(req, params),
+                             n in engine.bucket_sizes):
+            raise AssertionError(f"engine request of {n} differs from "
+                                 f"index.search")
+        lo += n
+    with recording_shapes(seen):
+        for b in engine.bucket_sizes:
+            # a window sliding over the 264 queries; results come back as
+            # numpy, so each request has synchronized when it returns
+            timed[b] = []
+            for i in range(SERVE_REPS[b]):
+                s = (i * b) % (nq - b + 1)
+                t0 = time.perf_counter()
+                engine.search(queries[s:s + b])
+                timed[b].append((time.perf_counter() - t0) * 1e3)
+    unchecked = seen - set(GATHER_SHAPES)
+    if not seen or unchecked:
+        raise AssertionError(f"rowgather shapes not held in phase 3: "
+                             f"{sorted(unchecked) or 'none recorded'}")
+    for idx, p in ((index, params.with_(backend="dma")),
+                   (index, params.with_(backend="dedup_gather")),
+                   (qindex, qparams.with_(backend="rowgather_int8")),
+                   (qindex, qparams.with_(backend="dedup_gather_int8"))):
+        eng = idx.serve(p)
+        got, path_launches[f"engine64/{p.backend}"] = counted(
+            eng.search, queries[:64])
+        if not served_equals(got, idx.search(queries[:64], p), True):
+            raise AssertionError(f"engine through {p.backend} differs from "
+                                 f"index.search")
+    check_launches(path_launches)
+    facts["bucket_ms"] = {}
+    for b, ms in timed.items():
+        row = {"requests": len(ms), "p50": float(np.percentile(ms, 50)),
+               "max": max(ms)}
+        if len(ms) >= TAIL_MIN:
+            row["p99"] = float(np.percentile(ms, 99))
+        facts["bucket_ms"][str(b)] = row
+    facts["single_query_p50_ms"] = facts["bucket_ms"]["1"]["p50"]
+    facts["rowgather_shapes"] = sorted(seen)
+    facts["requests_bit_identical"] = list(SERVE_SIZES)
+    facts["backends_bit_identical"] = sorted(
+        {p.split("/")[1] for p in path_launches})
+    return facts, path_launches, engine
+
+
+def serve_coalescer(index, queries_np, params, direct, bucket64_ms, seed):
+    """Phase 12 (3): the 264 queries, COALESCE_PASSES times over, one at a
+    time with Poisson gaps from ``seed`` at half the rate the 64-bucket
+    sustains on real queries (64 over its p50), through ``serve_async``'s
+    dispatcher thread on the real clock: every answer equal to the direct
+    single-query search, and the served rate at least 90% of the offered
+    (the queue did not grow).  Then a cached server given 64 of them
+    twice: the second 64 all hits, equal."""
+    from repro_torch.serve import CachePolicy
+    rate = 0.5 * 64 / (bucket64_ms / 1e3)
+    order = np.tile(np.arange(len(queries_np)), COALESCE_PASSES)
+    gaps = np.random.default_rng(seed).exponential(1.0 / rate, len(order))
+    srv = index.serve_async(params, max_wait_ms=2.0)
+    t_sub, futs = [], []
+    due = time.perf_counter()
+    for i, gap in zip(order, gaps):
+        due += gap
+        time.sleep(max(0.0, due - time.perf_counter()))
+        t_sub.append(time.perf_counter())
+        futs.append(srv.submit(queries_np[i]))
+    res = [f.result(timeout=600) for f in futs]
+    st = srv.stats()
+    srv.close()
+    for i, r in zip(order, res):
+        if not (np.array_equal(r.ids, direct[i][0])
+                and np.array_equal(r.dists, direct[i][1])):
+            raise AssertionError(f"coalesced query {i} differs from its "
+                                 f"direct search")
+    lat = [(r.done_t - t) * 1e3 for r, t in zip(res, t_sub)]
+    done = sorted(r.done_t for r in res)
+    # both rates over their own span: arrivals first to last, completions
+    # first to last
+    offered = (len(res) - 1) / (t_sub[-1] - t_sub[0])
+    served = (len(res) - 1) / (done[-1] - done[0])
+    quarter = len(lat) // 4
+    out = {"rate_qps": rate, "offered_qps": offered, "served_qps": served,
+           "requests": len(res),
+           "latency_p50_ms": float(np.percentile(lat, 50)),
+           "latency_p99_ms": float(np.percentile(lat, 99)),
+           "latency_p50_first_quarter_ms": float(np.median(lat[:quarter])),
+           "latency_p50_last_quarter_ms": float(np.median(lat[-quarter:])),
+           "queue_wait_p50_ms": float(np.percentile(
+               [r.queue_wait_ms for r in res], 50)),
+           "batch_size_mean": st["batch_size_mean"],
+           "batches": st["batches_dispatched"], "bit_identical": True}
+    if served < 0.9 * offered:
+        raise AssertionError(f"coalescer fell behind its offered rate: "
+                             f"{out}")
+    srv = index.serve_async(params, max_wait_ms=2.0, cache=CachePolicy())
+    first = [f.result(timeout=600)
+             for f in [srv.submit(q) for q in queries_np[:64]]]
+    hits = [srv.submit(q).result(timeout=60) for q in queries_np[:64]]
+    cache = srv.cache.stats()
+    srv.close()
+    if cache["hits"] != 64 or any(
+            h.batch_size != 0.0 or not np.array_equal(h.ids, r.ids)
+            or not np.array_equal(h.dists, r.dists)
+            or not np.array_equal(h.ids, direct[i][0])
+            for i, (h, r) in enumerate(zip(hits, first))):
+        raise AssertionError(f"cache replay: {cache}")
+    out["cache_hits"] = cache["hits"]
+    return out
+
+
+def serve_router(index, queries_np, params, direct, hedge_ms):
+    """Phase 12 (4): two replicas behind ``ReplicaRouter`` with a hedge
+    after ``hedge_ms``; 64 single queries from 4 client threads, each equal
+    to its direct search and resolved once, hedges counted."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.serve import ReplicaRouter, RouterPolicy
+    router = ReplicaRouter([index.serve(params) for _ in range(2)],
+                           policy=RouterPolicy(hedge_after_ms=hedge_ms))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        res = list(pool.map(
+            lambda i: router.search(queries_np[i:i + 1]), range(64)))
+    router.drain_hedges()
+    st = router.stats()
+    router.close()
+    for i, r in enumerate(res):
+        if not (np.array_equal(r.ids[0], direct[i][0])
+                and np.array_equal(r.dists[0], direct[i][1])):
+            raise AssertionError(f"routed query {i} differs from its "
+                                 f"direct search")
+    if st["requests"] != 64 or st["hedges"] == 0:
+        raise AssertionError(f"router: {st}")
+    lat = [r.latency_ms for r in res]
+    return {"hedge_after_ms": hedge_ms, "requests": 64,
+            "hedges": st["hedges"], "hedge_wins": st["hedge_wins"],
+            "hedge_discarded": st["hedge_discarded"],
+            "replica_served": [st["replica0_served"],
+                               st["replica1_served"]],
+            "latency_p50_ms": float(np.percentile(lat, 50)),
+            "latency_max_ms": max(lat), "bit_identical": True}
+
+
+def serve_obs(index, queries, params):
+    """Phase 12 (5): one request of 64 through an engine with tracing,
+    metrics and the profiler bridge on, under torch.profiler: the trace
+    passes ``scripts/check_trace.py`` with device_compute and postprocess
+    inside engine.search; the ``ann_dispatch/bucket64`` range holds every
+    rowgather launch of the request.  The device idle share is the
+    profiled run's busy time against the wall time of the same request
+    without the profiler (median of 3), as ``profile_batch`` reads it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _cuda
+    from repro_torch.obs import Observability
+    obs = Observability(tracing=True, metrics=True, profile=True)
+    engine = index.serve(params, obs=obs)
+    engine.search(queries[:64])                  # the bucket's entry
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.search(queries[:64])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
+    obs.tracer.clear()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.search(queries[:64])
+        torch.cuda.synchronize()
+        wall_profiled = (time.perf_counter() - t0) * 1e3
+    launched = _cuda.LAUNCHES["l2dist_rowgather"]
+    trace = obs.tracer.to_chrome_trace()
+    errors = load_check_trace().validate(trace, require=[
+        "engine.search", "device_compute", "postprocess"])
+    ev = {e["name"]: e for e in trace["traceEvents"]}
+    outer, dc, pp = (ev["engine.search"], ev["device_compute"],
+                     ev["postprocess"])
+    end = outer["ts"] + outer["dur"] + 0.5
+    if errors or not (outer["ts"] <= dc["ts"] and dc["ts"] + dc["dur"]
+                      <= pp["ts"] + 0.5 and pp["ts"] + pp["dur"] <= end):
+        raise AssertionError(f"trace: {errors or 'span nesting'}")
+    events = prof.events()
+    ann = [e for e in events if e.name == "ann_dispatch/bucket64"
+           and e.device_type == DeviceType.CPU]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and TRACE_KERNEL["rowgather"] in e.name]
+    if len(ann) != 1 or launched == 0:
+        raise AssertionError(f"profiler: {len(ann)} ann_dispatch/bucket64 "
+                             f"ranges, {launched} rowgather launches")
+    linked = sum(TRACE_KERNEL["rowgather"] in k.name for k in ann[0].kernels)
+    lo, hi = ann[0].time_range.start, ann[0].time_range.end
+    inside = sum(lo <= k.time_range.start and k.time_range.end <= hi
+                 for k in kernels)
+    if linked != launched and not (inside == len(kernels) == launched):
+        raise AssertionError(
+            f"ann_dispatch/bucket64 holds {linked} linked / {inside} timed "
+            f"of {launched} rowgather launches ({len(kernels)} traced)")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # the profiler mirrors the annotation onto the device's timeline, where
+    # it spans the whole request: it is no device work of its own
+    busy_ms = sum(dev_us(e) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key != "ann_dispatch/bucket64") / 1e3
+    reg = obs.registry.to_dict()
+    return {"trace_events": len(trace["traceEvents"]), "check_trace": "OK",
+            "rowgather_launches": launched,
+            "launches_in_ann_dispatch": {"linked": linked, "timed": inside},
+            "wall_ms": wall_ms, "wall_ms_profiled": wall_profiled,
+            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "registry_series": sorted(reg)}
+
+
+def serve_phase(index, qindex, queries, seed, smi):
+    """Phase 12: the serving stack on the card, on the 1M fixture index and
+    its int8 copy.  Returns (the phase's line, its path launches)."""
+    import torch
+    params = smoke_params().with_(backend="rowgather")
+    qparams = smoke_params().with_(rerank_k=30)
+    out = {"phase": "serve", "card": smi}
+    t0 = time.perf_counter()
+    facts, path_launches, engine = serve_engine(index, qindex, queries,
+                                                params, qparams)
+    out["engine"] = facts
+    searcher = index.searcher(params)
+    direct = []
+    for i in range(queries.shape[0]):
+        r = searcher(queries[i:i + 1])
+        direct.append((r.ids[0].cpu().numpy(), r.dists[0].cpu().numpy()))
+    queries_np = queries.cpu().numpy()
+    out["coalescer"] = serve_coalescer(
+        index, queries_np, params, direct,
+        facts["bucket_ms"]["64"]["p50"], seed)
+    out["router"] = serve_router(index, queries_np, params, direct,
+                                 0.5 * facts["single_query_p50_ms"])
+    out["obs"] = serve_obs(index, queries, params)
+    out["launches"] = path_launches
+    out["seconds"] = time.perf_counter() - t0
+    del engine
+    torch.cuda.empty_cache()
+    return out, path_launches
+
+
 def smoke_params():
     """The smoke's search: speedann, k = 10, L = 128, M = 8, W = 8."""
     from repro_torch.ann import SearchParams
@@ -1123,7 +1487,7 @@ def profile_round(index, pool: str, rows: int, seed: int, smi):
 
 def construct(seed: int, base, more, queries, fixture_recall, smi,
               n_build: int):
-    """Phase 12: the port builds the index it searches, on the card.
+    """Phase 13: the port builds the index it searches, on the card.
 
     (1) a build of 2,048 integer vectors on the card (rowgather,
     build_batch 512) equal to the port's CPU build (ref, build_batch 32);
@@ -1431,6 +1795,14 @@ def main() -> int:
           "card": smi})
     for row in profile_backends(index, qindex, queries, smi):
         emit(row)
+    served, serve_launches = serve_phase(index, qindex, queries, args.seed,
+                                         smi)
+    emit(served)
+    for row in rows:
+        # the serve phase's engine requests are a further main path
+        n = sum(c[row["name"]] for c in serve_launches.values())
+        if n:
+            row["launches_serve"] = n
     del qindex, index
     torch.cuda.empty_cache()
 

@@ -14,6 +14,8 @@ device (CUDA unless the caller names another)::
     index = AnnIndex.load("idx.npz")
     res = index.search(queries, SearchParams(algorithm="speedann", m_max=8,
                                              backend="rowgather"))
+    engine = index.serve(params)                      # bucketed serving
+    srv = index.serve_async(params)                   # coalescing front-end
 
 ``build`` runs either builder (``nsg``, ``hnsw``) on the device, its
 candidate searches through ``build_backend``'s kernel; ``build_batch``
@@ -65,7 +67,6 @@ _SAVE_FORMAT = 3
 
 _NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md, 'Modules to "
                "port', item {})")
-_SERVING_ITEM = 4          # ROADMAP.md §1: the serving stack
 _DISTRIBUTION_ITEM = 5     # ROADMAP.md §1: distribution
 
 
@@ -387,15 +388,48 @@ class AnnIndex:
         self._set_maps(self.old_from_new, tomb)
         return int(fresh.shape[0])
 
-    # -- not ported yet ----------------------------------------------------
+    # -- serving -----------------------------------------------------------
 
-    def serve(self, *args, **kw):
-        raise NotImplementedError(
-            "AnnIndex.serve: " + _NOT_PORTED.format(_SERVING_ITEM))
+    def serve(self, params: SearchParams = SearchParams(), *, mesh=None,
+              obs=None, **engine_kw):
+        """A bucketed :class:`repro_torch.serve.AnnEngine` over this index,
+        on its device (``engine_kw`` forwards e.g. ``bucket_sizes``).
 
-    def serve_async(self, *args, **kw):
-        raise NotImplementedError(
-            "AnnIndex.serve_async: " + _NOT_PORTED.format(_SERVING_ITEM))
+        The engine serves the single-device algorithms (bfis | topm |
+        speedann).  ``mesh`` is accepted only as None: the sharded paths
+        are not ported (``NotImplementedError``).  ``obs`` takes a
+        :class:`repro_torch.obs.Observability` bundle for request-scoped
+        tracing and convergence telemetry (None: the no-op ``NULL_OBS``)."""
+        from repro_torch.serve.ann_engine import AnnEngine
+        return AnnEngine(self, params, mesh=mesh, obs=obs, **engine_kw)
+
+    def serve_async(self, params: SearchParams = SearchParams(), *,
+                    max_batch: Optional[int] = None,
+                    max_wait_ms: float = 2.0,
+                    default_deadline_ms: Optional[float] = None,
+                    mesh=None, start: bool = True, obs=None,
+                    cache=None, admission=None, clock=None, **engine_kw):
+        """An async coalescing front-end (:class:`repro_torch.serve.
+        AsyncAnnEngine`) over :meth:`serve`: single queries with
+        per-request deadlines in, bucketed batches through the engine,
+        per-request futures back.
+
+        ``max_batch`` defaults to the engine's top bucket.  The wrapped
+        batched engine stays reachable as ``.engine``; the coalescer
+        inherits its ``obs``.  ``cache`` (a ``CachePolicy`` or a ready
+        ``ResultCache``), ``admission`` (an ``AdmissionPolicy`` or an
+        ``AdmissionController``) and ``clock`` (a virtual clock for
+        deterministic tests, with ``start=False``) pass straight through.
+        """
+        from repro_torch.serve.coalescer import AsyncAnnEngine, CoalescePolicy
+        engine = self.serve(params, mesh=mesh, obs=obs, **engine_kw)
+        policy = CoalescePolicy(
+            max_batch=max_batch if max_batch is not None
+            else engine.bucket_sizes[-1],
+            max_wait_ms=max_wait_ms,
+            default_deadline_ms=default_deadline_ms)
+        return AsyncAnnEngine(engine, policy, start=start, cache=cache,
+                              admission=admission, clock=clock)
 
     # -- persistence -------------------------------------------------------
 

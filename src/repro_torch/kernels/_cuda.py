@@ -5,7 +5,8 @@ shared library with a plain C interface, loaded with :mod:`ctypes`.  Builds
 happen at first use (never at import), all sources in parallel, into
 ``build/repro_torch/`` at the repository root, keyed by a hash of the
 sources and flags — so a fresh checkout builds itself.  A failed build
-raises with nvcc's stderr.
+raises with nvcc's stderr.  Building and loading hold one process-wide
+lock, so threads that first use a kernel together build it once.
 
 Every launch runs on ``torch.cuda.current_stream()``, allocates nothing, and
 returns ``cudaGetLastError()``; :func:`launch` raises when it is non-zero
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -61,11 +63,17 @@ LAUNCHES: Dict[str, int] = {"l2dist_rowgather": 0, "l2dist_dma": 0,
                             "dedupdist_int8": 0, "sort_pairs": 0}
 BUILD_LOG: Dict[str, str] = {}      # source name -> nvcc/ptxas output
 _FUNCS: Dict[str, ctypes._CFuncPtr] = {}
+# serializes build() and the first load of each library; re-entrant, since
+# _func builds under it
+_BUILD_LOCK = threading.RLock()
+# the launch counts are read-modify-written by every launch
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,13 +105,19 @@ def build(names: Optional[Iterable[str]] = None) -> List[str]:
     """Compile every named source (default: all) whose library is missing,
     one ``nvcc`` per source, all started together.  Returns the names
     built."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names: Optional[Iterable[str]]) -> List[str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in ENTRY if names is None else names:
         out = _lib_path(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # per process and thread: no two builders write one file
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
@@ -125,12 +139,15 @@ def build(names: Optional[Iterable[str]] = None) -> List[str]:
 def _func(name: str):
     fn = _FUNCS.get(name)
     if fn is None:
-        build([name])
-        entry, argtypes = ENTRY[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
+        with _BUILD_LOCK:
+            fn = _FUNCS.get(name)
+            if fn is None:
+                build([name])
+                entry, argtypes = ENTRY[name]
+                fn = getattr(ctypes.CDLL(str(_lib_path(name))), entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FUNCS[name] = fn
     return fn
 
 
@@ -142,7 +159,8 @@ def launch(source: str, kernel: str, *args) -> None:
     rc = _func(source)(*c_args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def vec_ok(table: torch.Tensor, queries: torch.Tensor) -> int:

@@ -92,20 +92,26 @@ class QueryMetaMemo:
     another tensor at the same address, and its ``_version`` counts its
     in-place writes.  A tensor made under ``torch.inference_mode()`` has no
     version counter, so nothing tells that it was not changed in place: its
-    query side is computed on every call."""
+    query side is computed on every call.
+
+    Safe across threads (a DistFn may serve searches on several): the
+    tensor, its version and its query side are one tuple, replaced in one
+    assignment and read once into a local, so a call returns either the
+    held query side of its own tensor or one it computed itself."""
 
     def __init__(self):
-        self._queries = None
-        self._version = -1
-        self._meta = None
+        self._held = (None, -1, None)      # (queries, _version, meta)
 
     def __call__(self, queries: torch.Tensor):
         if queries.is_inference():
             return query_meta(queries)
-        if queries is not self._queries or queries._version != self._version:
-            self._meta = query_meta(queries)
-            self._queries, self._version = queries, queries._version
-        return self._meta
+        version = queries._version
+        held_q, held_v, meta = self._held
+        if held_q is queries and held_v == version:
+            return meta
+        meta = query_meta(queries)
+        self._held = (queries, version, meta)
+        return meta
 
 
 def int8_epilogue(acc: torch.Tensor, rn2: torch.Tensor, s: torch.Tensor,

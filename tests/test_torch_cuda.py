@@ -12,11 +12,13 @@ machine with the card and without JAX::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.ann import AnnIndex, IndexSpec, quantize_graph
+from repro_torch.ann import AnnIndex, IndexSpec, SearchParams, quantize_graph
 from repro_torch.core import (build_hnsw, exact_knn, knn_graph,
                               make_padded_csr, robust_prune_batch)
 from repro_torch.core.bfis import hnsw_search_batch, search_topm_batch
@@ -32,6 +34,7 @@ from repro_torch.kernels.ops import topl_merge
 from repro_torch.kernels.ref import sort_pairs_ref
 from repro_torch.quant import QuantSpec, fit_scales, quantize, quantize_query
 from repro_torch.quant.kernels import int8dist_ref, int8dist_rowgather
+from repro_torch.serve import AnnEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -687,3 +690,109 @@ def test_exact_knn_on_card_ignores_tf32(cuda_device, metric, allow):
             torch.set_float32_matmul_precision("highest")
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+# -- serving on the card ---------------------------------------------------
+
+SERVE_STREAM = (1, 3, 7, 4, 2, 8, 11)
+SERVE_PARAMS = dict(k=10, queue_len=32, m_max=4, num_walkers=4)
+
+
+def _serve_index(quant: bool = False):
+    """An index of 2,000 integer vectors on the card (kNN-12 plus 4 random
+    out-edges), int8-quantized with ``quant``, and the stream's queries."""
+    rng = np.random.RandomState(31)
+    x = torch.from_numpy(rng.randint(0, 256, size=(2000, 32))
+                         .astype(np.float32))
+    q = rng.randint(0, 256, size=(sum(SERVE_STREAM), 32)).astype(np.float32)
+    nbrs = torch.cat([knn_graph(x, 12), torch.from_numpy(
+        rng.randint(0, 2000, size=(2000, 4)).astype(np.int32))], dim=1)
+    graph = make_padded_csr(nbrs, x, device="cuda")
+    spec = IndexSpec(metric="l2", degree=16)
+    if quant:
+        graph = quantize_graph(graph, QuantSpec("int8"))
+        spec = spec.with_(quant="int8")
+    return AnnIndex(spec, graph), q
+
+
+def _same_served(served, direct):
+    assert np.array_equal(served.ids, direct.ids.cpu().numpy())
+    assert np.array_equal(served.dists, direct.dists.cpu().numpy())
+    for name, d, s in zip(direct.stats._fields, direct.stats, served.stats):
+        if name not in direct.stats.BATCH_RELATIVE:
+            assert np.array_equal(s, d.cpu().numpy()), name
+    assert np.array_equal(served.stats.uniq_comps
+                          + served.stats.batch_dup_comps,
+                          served.stats.dist_comps)
+
+
+def test_engine_on_card_equals_search(cuda_device):
+    index, q = _serve_index()
+    params = SearchParams(**SERVE_PARAMS, backend="rowgather")
+    engine = index.serve(params, bucket_sizes=(1, 2, 4, 8))
+    assert set(engine.warmup()) == {1, 2, 4, 8}
+    lo = 0
+    for n in SERVE_STREAM:
+        before = dict(_cuda.LAUNCHES)
+        served = engine.search(q[lo:lo + n])
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["l2dist_rowgather"] > \
+            before["l2dist_rowgather"]
+        _same_served(served, index.search(q[lo:lo + n], params))
+        lo += n
+    assert engine.stats()["padded_queries"] == 3.0
+
+
+def test_serve_async_on_card_equals_search(cuda_device):
+    index, q = _serve_index()
+    params = SearchParams(**SERVE_PARAMS, backend="rowgather")
+    with index.serve_async(params, bucket_sizes=(1, 2, 4, 8),
+                           max_wait_ms=1.0) as srv:
+        futs = [srv.submit(v) for v in q[:16]]
+        results = [f.result(timeout=120) for f in futs]
+    for v, res in zip(q, results):
+        want = index.search(v[None], params)
+        assert np.array_equal(res.ids, want.ids[0].cpu().numpy())
+        assert np.array_equal(res.dists, want.dists[0].cpu().numpy())
+    assert srv.stats()["served"] == 16.0
+
+
+@pytest.mark.parametrize("path", ["facade", "legacy"])
+def test_int8_replicas_from_threads_equal_one_engine(cuda_device, path):
+    """Two replicas of one int8 index, each searched by two threads at
+    once: every request equals the single engine's answer.  The legacy
+    engines share one DistFn (and its query-side memo) across threads."""
+    index, q = _serve_index(quant=True)
+    if path == "facade":
+        def engine():
+            return index.serve(SearchParams(**SERVE_PARAMS,
+                                            backend="rowgather_int8",
+                                            rerank_k=20),
+                               bucket_sizes=(1, 2, 4, 8))
+    else:
+        def engine():
+            cfg = SearchConfig(**SERVE_PARAMS,
+                               dist_backend="rowgather_int8")
+            return AnnEngine(index, cfg, bucket_sizes=(1, 2, 4, 8))
+    single = engine()
+    reqs = [q[i:i + 1 + i % 5] for i in range(24)]
+    want = [single.search(r) for r in reqs]
+    replicas = [engine(), engine()]
+    start = threading.Barrier(4)
+    got = [None] * len(reqs)
+
+    def client(t):
+        start.wait(timeout=30)
+        for i in range(t, len(reqs), 4):
+            got[i] = replicas[t % 2].search(reqs[i])
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    for w, g in zip(want, got):
+        assert np.array_equal(g.ids, w.ids)
+        assert np.array_equal(g.dists, w.dists)
+        for name, a, b in zip(w.stats._fields, w.stats, g.stats):
+            assert np.array_equal(a, b), name

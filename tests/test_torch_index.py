@@ -129,14 +129,10 @@ def test_exact_matches_reference(files, data, name):
 def test_not_ported_paths_raise(files, data, tmp_path):
     x, q = data
     l2 = TIndex.load(files["l2"][1], device="cpu")
-    # serving and distribution are not ported: they raise, naming their
-    # ROADMAP item
-    for call, item in ((lambda: l2.serve(), 4), (lambda: l2.serve_async(), 4),
-                       (lambda: l2.search(q, TParams(algorithm="sharded")),
-                        5)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.*item {item}"):
-            call()
+    # distribution is not ported: it raises, naming its ROADMAP item
+    # (serving is ported: tests/test_torch_serve.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
+        l2.search(q, TParams(algorithm="sharded"))
     # build, add, delete and bfis on an hnsw file are ported: each equals
     # the reference
     spec = dict(degree=12, passes=1, metric="l2")

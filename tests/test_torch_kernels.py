@@ -6,6 +6,12 @@ On the CPU each wrapper returns its plain version; those are held against
 to exact equality on integer-valued data.  The kernels themselves are
 held against these plain versions on the card by ``test_torch_cuda.py``.
 """
+import os
+import threading
+import time
+import types
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +20,7 @@ import torch
 from repro.kernels import dedup as j_dedup
 from repro.kernels import ops as j_ops
 from repro.kernels import registry as j_registry
-from repro_torch.kernels import registry
+from repro_torch.kernels import _cuda, registry
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels.dedup import dedupdist, unique_ids_inverse
 from repro_torch.kernels.l2dist import l2dist_dma, l2dist_rowgather
@@ -132,3 +138,69 @@ def test_wrappers_check_inputs(bad):
     for fn in PORT.values():
         with pytest.raises((TypeError, ValueError)):
             fn(table, ids, q)
+
+
+def _threads(target, n=2):
+    """Run ``target(i)`` on ``n`` threads started together; returns their
+    results in thread order."""
+    start, out = threading.Barrier(n), [None] * n
+
+    def run(i):
+        start.wait(timeout=10)
+        out[i] = target(i)
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in ts)
+    return out
+
+
+def test_first_use_from_two_threads_builds_and_loads_once(monkeypatch):
+    built, loaded = [], []
+
+    def slow_build(names):
+        built.append(list(names))
+        time.sleep(0.05)            # the other thread arrives meanwhile
+        return list(names)
+
+    class FakeLib:
+        def __init__(self, path):
+            loaded.append(path)
+
+        def __getattr__(self, entry):
+            return types.SimpleNamespace(name=entry)
+
+    monkeypatch.setattr(_cuda, "_FUNCS", {})
+    monkeypatch.setattr(_cuda, "build", slow_build)
+    monkeypatch.setattr(_cuda.ctypes, "CDLL", FakeLib)
+    fns = _threads(lambda i: _cuda._func("rowgather"))
+    assert built == [["rowgather"]] and len(loaded) == 1
+    assert fns[0] is fns[1] and fns[0].name == "rowgather_launch"
+
+
+def test_build_from_two_threads_runs_nvcc_once(monkeypatch, tmp_path):
+    runs = []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            runs.append(cmd)
+            self.out = Path(cmd[cmd.index("-o") + 1])
+            self.returncode = 0
+
+        def communicate(self):
+            time.sleep(0.05)
+            self.out.write_bytes(b"")
+            return "", ""
+
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_cuda.subprocess, "Popen", FakeNvcc)
+    got = _threads(lambda i: _cuda.build(["bitonic"]))
+    assert sorted(got) == [[], ["bitonic"]]
+    assert len(runs) == 1
+    tmp = Path(runs[0][runs[0].index("-o") + 1]).name
+    assert f".{os.getpid()}." in tmp and tmp.endswith(".tmp")
+    assert [p.name for p in tmp_path.iterdir()] == [
+        _cuda._lib_path("bitonic").name]

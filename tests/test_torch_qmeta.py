@@ -10,6 +10,10 @@ A tensor made under ``torch.inference_mode()`` has no version counter, so
 its query side is computed on every call.  Also: the dedup kernels' tile
 sizing (``kernels.dedup.tile_lanes``).
 """
+import sys
+import threading
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -203,3 +207,48 @@ def test_tile_lanes_refuse_a_row_too_wide():
     with pytest.raises(ValueError, match="d = 40000"):
         dedup.dedupdist(table, torch.zeros((2, 3), dtype=torch.int32),
                         torch.zeros((2, 40000)))
+
+
+class _Yielding(torch.Tensor):
+    """A tensor that hands the interpreter to another thread whenever its
+    version counter is read: a thread switch where the interpreter may put
+    one anyway, made certain."""
+
+    @property
+    def _version(self):
+        time.sleep(0)
+        return super()._version
+
+
+def test_query_meta_memo_is_safe_across_threads():
+    # two threads hand one memo two different queries tensors, 200 times
+    # each, with a thread switch forced every microsecond and at every
+    # read of a version counter: each call must return the query side of
+    # its own tensor, never the other thread's
+    rng = np.random.RandomState(4)
+    plain = [torch.from_numpy(rng.randn(5, 16).astype(np.float32))
+             for _ in range(2)]
+    want = [qk.query_meta(q) for q in plain]
+    qs = [q.as_subclass(_Yielding) for q in plain]
+    memo = qk.QueryMetaMemo()
+    start = threading.Barrier(2)
+    wrong = [0, 0]
+
+    def work(i):
+        start.wait(timeout=10)
+        for _ in range(200):
+            got = memo(qs[i])
+            if not all(torch.equal(g, w) for g, w in zip(got, want[i])):
+                wrong[i] += 1
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert wrong == [0, 0]
