@@ -40,7 +40,7 @@ Phases, one JSON line each:
                just after: its backend's kernel must launch, no other may;
   7. recall  — recall@10 against AnnIndex.exact, at least 0.25;
   8. merge   — every frontier insert of one speedann batch, captured at its
-               call site (core/bfis.py expand_batch), replayed through
+               call site (core/bfis.py _expand), replayed through
                ops.topl_merge (two sort_pairs launches each): equal to
                queue.insert bit for bit;
   9. quant   — the 1M index quantized on the card (quantize_graph, int8
@@ -114,7 +114,25 @@ Phases, one JSON line each:
                hnsw build at N_HNSW = 100,000, its bfis
                (through the upper-level descent) on 64 queries equal in
                ids, dists and the 8 counters to the CPU search of the saved
-               index.
+               index;
+ 14. sharded — run after phase 12, on the fixture index while it is on
+               the card: the walker-sharded search (``SearchParams(
+               algorithm="sharded")``, 12 global rounds of at most 4
+               local rounds) of 64 queries on
+               (1, 1), (1, 4) and (2, 4) meshes through rowgather, dma and
+               dedup_gather, bit-identical, each launching its own kernel
+               only, the first 8 queries equal to the same search on the
+               CPU, recall@10 at least 0.25, p50 wall of 5 batches and one
+               batch under torch.profiler (device busy and idle share); the
+               coalescer over the (1, 4) sharded engine, 16 single queries,
+               each equal to ``index.search``; the corpus path:
+               ``build_partitioned_index`` of the N_CORPUS smoke vectors in
+               4 shards (construct's spec, α = 1; seconds, peak memory,
+               launches), ``corpus_sharded_search`` and the corpus
+               AnnEngine on a (1, 4) mesh: ids in range, recall@10 against
+               the exact kNN of the whole corpus at least 0.25, the engine
+               equal to the direct search, p50 and profile as above.  The
+               kernels line's rows gain ``launches_sharded``.
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -570,14 +588,14 @@ def run_backend(index, queries, params):
     return ids, dists, stats, lat
 
 
-def counted(fn, *args):
-    """``fn(*args)`` with every launch count set to 0 just before it and
-    read just after: (result, {kernel: launches})."""
+def counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every launch count set to 0 just before it
+    and read just after: (result, {kernel: launches})."""
     import torch
     from repro_torch.kernels import _cuda
     torch.cuda.synchronize()
     _cuda.reset_launches()
-    out = fn(*args)
+    out = fn(*args, **kw)
     torch.cuda.synchronize()
     return out, dict(_cuda.LAUNCHES)
 
@@ -637,7 +655,7 @@ def step_ids(index, queries, params, inner=None):
 
 def capture_inserts(index, queries, params):
     """Every frontier insert of one speedann batch of 64 (rowgather) made
-    at its call site in ``core.bfis.expand_batch``: a list of (frontier,
+    at its call site in ``core.bfis._expand``: a list of (frontier,
     candidate ids, candidate dists, insert's output)."""
     import torch
     from repro_torch.core import queue as fq
@@ -647,7 +665,7 @@ def capture_inserts(index, queries, params):
 
     def recording(f, ids, dists):
         out = real(f, ids, dists)
-        if sys._getframe(1).f_code.co_name == "expand_batch":
+        if sys._getframe(1).f_code.co_name == "_expand":
             seen.append((f, ids, dists, out))
         return out
     fq.insert = recording
@@ -659,7 +677,7 @@ def capture_inserts(index, queries, params):
         fq.insert = real
     torch.cuda.synchronize()
     if not seen:
-        raise AssertionError("no insert captured at expand_batch")
+        raise AssertionError("no insert captured at _expand")
     return seen
 
 
@@ -894,29 +912,35 @@ TRACE_KERNEL = {"rowgather": "rowgather_kernel", "dma": "dma_kernel",
 
 
 def profile_batch(index, queries, params, smi, backend: str = "rowgather"):
-    """One speedann batch of 64 through ``backend``: its wall time (median
-    of 3 plain runs), then one run under torch.profiler for the summed
-    kernel time, the device's idle share against the plain wall time, the
-    kernel launches, the distance kernel's calls and mean time, and the ops
-    that take the most device time."""
+    """One speedann batch of 64 through ``backend``, read by
+    :func:`profile_call`."""
+    fn = index.searcher(params.with_(backend=backend))
+    return {"phase": "profile", "backend": backend, "batch": 64,
+            **profile_call(lambda: fn(queries[:64]), backend), "card": smi}
+
+
+def profile_call(run, backend: str):
+    """``run()`` (one batch through ``backend``): its wall time (median of
+    3 plain runs), then one run under torch.profiler for the summed kernel
+    time, the device's idle share against the plain wall time, the kernel
+    launches, the distance kernel's calls and mean time, and the ops that
+    take the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    p = params.with_(backend=backend)
-    fn = index.searcher(p)
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn(queries[:64])
+        run()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = float(np.median(walls))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(queries[:64])
+        run()
         torch.cuda.synchronize()
         wall_profiled = (time.perf_counter() - t0) * 1e3
 
@@ -935,8 +959,7 @@ def profile_batch(index, queries, params, smi, backend: str = "rowgather"):
     dist = [e for e in kernels if TRACE_KERNEL[backend] in e.key]
     dist_ms = sum(dev_us(e) for e in dist) / 1e3
     dist_n = sum(e.count for e in dist)
-    return {"phase": "profile", "backend": backend, "batch": 64,
-            "wall_ms": wall, "wall_ms_profiled": wall_profiled,
+    return {"wall_ms": wall, "wall_ms_profiled": wall_profiled,
             "device_busy_ms": busy_ms if measured else "not measured",
             "idle_share": 1 - busy_ms / wall if measured
             else "not measured",
@@ -945,8 +968,7 @@ def profile_batch(index, queries, params, smi, backend: str = "rowgather"):
             "dist_kernel_mean_ms": dist_ms / dist_n if dist_n
             else "not measured",
             "top_ops_device_ms": [[e.key, dev_us(e) / 1e3, e.count]
-                                  for e in ops[:10]],
-            "card": smi}
+                                  for e in ops[:10]]}
 
 
 def profile_backends(index, qindex, queries, smi):
@@ -1324,6 +1346,198 @@ def serve_phase(index, qindex, queries, seed, smi):
     del engine
     torch.cuda.empty_cache()
     return out, path_launches
+
+
+SHARD_MESHES = ((1, 1), (1, 4), (2, 4))    # walker meshes: (data, model)
+SHARD_BACKENDS = ("rowgather", "dma", "dedup_gather")
+SHARD_REPS = 5                      # timed batches of 64 per mesh
+SHARD_CPU_QUERIES = 8               # queries held to the CPU run
+N_SHARDS = 4                        # corpus shards, one per model position
+N_CORPUS = N                        # vectors the corpus path partitions
+# the corpus engine's best-first walker (M = 1) takes a step per expanded
+# vertex: the step budget of the reference's own multi-device check
+CORPUS_MAX_STEPS = 384
+
+
+def same_result(a, b) -> bool:
+    """Equal ids, dists and all 8 counters of two search results."""
+    import torch
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+
+
+def batch_walls(run, reps: int = SHARD_REPS):
+    """Wall ms of ``reps`` synced runs of ``run()``."""
+    import torch
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def _on_cpu(graph):
+    import torch
+    return graph._replace(**{f: t.cpu() for f, t in graph._asdict().items()
+                             if isinstance(t, torch.Tensor)})
+
+
+def walker_meshes(index, queries, gt, path_launches):
+    """Phase 14, the walker path: ``SearchParams(algorithm="sharded")``
+    (12 global rounds) on the 1M fixture index, a batch of 64, on each of
+    SHARD_MESHES; per
+    mesh the three f32 kernel backends bit-identical, each launching its
+    own kernel only, the first SHARD_CPU_QUERIES equal to the same search
+    on the CPU, recall@10 >= 0.25, p50 wall of SHARD_REPS batches and one
+    batch under the profiler; on (1, 4) the coalescer over the sharded
+    engine equal to ``index.search``."""
+    from repro_torch.ann import AnnIndex
+    from repro_torch.core import recall_at_k
+    from repro_torch.core.distributed import make_search_mesh
+
+    params = smoke_params().with_(algorithm="sharded")
+    q = queries[:64]
+    cpu_index = AnnIndex(index.spec, _on_cpu(index.graph))
+    out = {}
+    for shape in SHARD_MESHES:
+        name = "x".join(map(str, shape))
+        mesh = make_search_mesh(shape)
+        res = {}
+        for be in SHARD_BACKENDS:
+            res[be], path_launches[f"sharded_{name}/{be}"] = counted(
+                index.search, q, params.with_(backend=be), mesh=mesh)
+        for be in SHARD_BACKENDS[1:]:
+            if not same_result(res["rowgather"], res[be]):
+                raise AssertionError(f"sharded {shape}: {be} differs from "
+                                     "rowgather")
+        k = SHARD_CPU_QUERIES
+        on_cpu = cpu_index.search(q[:k].cpu(), params.with_(
+            backend="rowgather"), mesh=make_search_mesh(shape, device="cpu"))
+        card = res["rowgather"]
+        if not same_result(tuple(t[:k].cpu() for t in card[:2])
+                           + (tuple(t[:k].cpu() for t in card[2]),),
+                           on_cpu):
+            raise AssertionError(f"sharded {shape}: the card differs from "
+                                 "the CPU")
+        ids = card.ids.cpu()
+        if ids.shape != (64, 10) or not bool(card.dists.isfinite().all()):
+            raise AssertionError(f"sharded {shape}: results malformed")
+        recall = recall_at_k(ids, gt[:64], 10)
+        if recall < 0.25:
+            raise AssertionError(f"sharded {shape}: recall@10 {recall} "
+                                 "below 0.25")
+        fn = index.searcher(params.with_(backend="rowgather"), mesh=mesh)
+        walls = batch_walls(lambda: fn(q))
+        out[name] = {
+            "mesh": list(shape), "bit_identical": list(SHARD_BACKENDS),
+            "equal_cpu_queries": k, "recall_at_10": recall,
+            "p50_batch_ms": float(np.median(walls)), "batch_ms": walls,
+            "profile": profile_call(lambda: fn(q), "rowgather"),
+            "launches": {be: path_launches[f"sharded_{name}/{be}"]
+                         for be in SHARD_BACKENDS},
+            "mean_stats": {f: float(v.double().mean())
+                           for f, v in card.stats._asdict().items()}}
+    mesh = make_search_mesh((1, 4))
+    p = params.with_(backend="rowgather")
+    srv = index.serve_async(p, mesh=mesh, start=False)
+    try:
+        futs = [srv.submit(v) for v in queries[:16].cpu().numpy()]
+        srv.flush()
+        direct = index.search(queries[:16], p, mesh=mesh)
+        for i, f in enumerate(futs):
+            r = f.result(timeout=600)
+            if not (np.array_equal(r.ids, direct.ids[i].cpu().numpy())
+                    and np.array_equal(r.dists,
+                                       direct.dists[i].cpu().numpy())):
+                raise AssertionError("coalescer over the sharded engine "
+                                     "differs from index.search")
+    finally:
+        srv.close()
+    out["coalescer_1x4_equal_search"] = 16
+    return out
+
+
+def corpus_mesh(base, queries, path_launches):
+    """Phase 14, the corpus path: ``build_partitioned_index`` of the first
+    N_CORPUS smoke vectors in N_SHARDS shards (the construct phase's spec,
+    α = 1) with its seconds, peak memory and launches; then
+    ``corpus_sharded_search`` and the corpus ``AnnEngine`` on a (1, 4)
+    mesh, rowgather, a batch of 64: ids in range, recall@10 against the
+    exact kNN of the whole corpus >= 0.25, the engine equal to the direct
+    search, p50 wall of SHARD_REPS batches and one under the profiler."""
+    import torch
+    from repro_torch.ann import IndexSpec
+    from repro_torch.core import exact_knn, recall_at_k
+    from repro_torch.core.distributed import (build_partitioned_index,
+                                              corpus_sharded_search,
+                                              make_search_mesh)
+    from repro_torch.serve import AnnEngine
+
+    spec = IndexSpec(metric="l2", degree=32, alpha=BUILD_ALPHA,
+                     build_backend="rowgather", build_batch=BUILD_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sharded, path_launches["corpus_build/rowgather"] = counted(
+        build_partitioned_index, base[:N_CORPUS], N_SHARDS, spec)
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    mesh = make_search_mesh((1, N_SHARDS))
+    params = smoke_params().with_(backend="rowgather",
+                                  max_steps=CORPUS_MAX_STEPS)
+    cfg = params.to_search_config("l2").with_(m_max=1, staged=False,
+                                              num_walkers=1)
+    q = queries[:64]
+    (ids, dists), path_launches["corpus_1x4/rowgather"] = counted(
+        corpus_sharded_search, sharded, q, cfg, mesh)
+    ids = ids.cpu()
+    if not (bool(((ids >= 0) & (ids < N_CORPUS)).all())
+            and bool(dists.isfinite().all())):
+        raise AssertionError("corpus search returned an id out of range")
+    corpus = torch.from_numpy(base[:N_CORPUS]).cuda()
+    gt, _ = exact_knn(corpus, q, 10)
+    del corpus
+    recall = recall_at_k(ids, gt.cpu(), 10)
+    if recall < 0.25:
+        raise AssertionError(f"corpus recall@10 {recall} below 0.25")
+    engine = AnnEngine(sharded, params, mesh=mesh)
+    served, path_launches["corpus_engine_1x4/rowgather"] = counted(
+        engine.search, q)
+    if not (np.array_equal(served.ids, ids.numpy())
+            and np.array_equal(served.dists, dists.cpu().numpy())):
+        raise AssertionError("the corpus engine differs from the direct "
+                             "corpus search")
+    walls = batch_walls(lambda: corpus_sharded_search(sharded, q, cfg, mesh))
+    return {"n": N_CORPUS, "shards": N_SHARDS,
+            "rows_per_shard": sharded.nbrs.shape[1],
+            "build_seconds": build_s, "build_peak_bytes": peak,
+            "build_launches": path_launches["corpus_build/rowgather"],
+            "max_steps": CORPUS_MAX_STEPS, "recall_at_10": recall,
+            "engine_equal_direct": True,
+            "p50_batch_ms": float(np.median(walls)), "batch_ms": walls,
+            "profile": profile_call(
+                lambda: corpus_sharded_search(sharded, q, cfg, mesh),
+                "rowgather"),
+            "launches": {p: path_launches[p] for p in path_launches
+                         if p.startswith("corpus_")}}
+
+
+def sharded_phase(index, base, queries, gt, smi):
+    """Phase 14: the walker-sharded and corpus-sharded paths on the card.
+    Returns (the phase's line, its path launches)."""
+    import torch
+    t0 = time.perf_counter()
+    path_launches = {}
+    walker = walker_meshes(index, queries, gt, path_launches)
+    corpus = corpus_mesh(base, queries, path_launches)
+    check_launches(path_launches)
+    torch.cuda.empty_cache()
+    return ({"phase": "sharded", "walker": walker, "corpus": corpus,
+             "seconds": time.perf_counter() - t0, "card": smi},
+            path_launches)
 
 
 def smoke_params():
@@ -1803,7 +2017,17 @@ def main() -> int:
         n = sum(c[row["name"]] for c in serve_launches.values())
         if n:
             row["launches_serve"] = n
-    del qindex, index
+    del qindex
+    torch.cuda.empty_cache()
+    sharded, shard_launches = sharded_phase(index, facts["base"], queries,
+                                            gt, smi)
+    emit(sharded)
+    for row in rows:
+        # the sharded paths (walker and corpus, the corpus build included)
+        n = sum(c[row["name"]] for c in shard_launches.values())
+        if n:
+            row["launches_sharded"] = n
+    del index
     torch.cuda.empty_cache()
 
     built = construct(args.seed, facts["base"], facts["more"], queries,

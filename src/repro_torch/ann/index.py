@@ -23,11 +23,16 @@ tiles them (a larger tile is faster on the card and changes no output
 bit).  ``load``/``from_arrays``/``save`` read and write the reference's
 npz layout (formats 1–3, hnsw levels included), so an index built by
 either package searches in the other and files round-trip both ways.  The
-search runs every algorithm of the single-device path (bfis | topm |
-speedann; bfis on an hnsw index descends its upper levels first) over every
-distance backend and metric, with cosine query normalization, the
-tombstone mask, exact re-ranking and the neighbor-grouping id remap, in the
-reference's order.
+search runs every algorithm (bfis | topm | speedann | sharded; bfis on an
+hnsw index descends its upper levels first) over every distance backend
+and metric, with cosine query normalization, the tombstone mask, exact
+re-ranking and the neighbor-grouping id remap, in the reference's order.
+"sharded" is the walker-sharded path of :mod:`repro_torch.core.distributed`
+on a :class:`~repro_torch.core.distributed.SearchMesh` whose positions all
+sit on the index's device::
+
+    mesh = make_search_mesh((1, 4), device=index.device)   # 4 walkers
+    res = index.search(queries, SearchParams(algorithm="sharded"), mesh=mesh)
 
 Quantized storage: :func:`quantize_graph` attaches int8 codes + scales (or
 bf16 codes) to a graph, and ``SearchParams(rerank_k=...)`` makes a search
@@ -55,6 +60,9 @@ from repro_torch.core.bfis import (bfis_search_batch, hnsw_search_batch,
 from repro_torch.core.build import (HNSWIndex, build_hnsw, build_nsg,
                                     exact_knn, insert_points,
                                     normalize_rows, repair_deleted)
+from repro_torch.core.distributed import (SearchMesh, check_mesh_device,
+                                          make_search_mesh,
+                                          walker_sharded_search)
 from repro_torch.core.graph import (PaddedCSR, _flatten_top, compute_medoid,
                                     group_by_indegree, remap_sentinels)
 from repro_torch.core.queue import _sort_by
@@ -65,16 +73,19 @@ from repro_torch.quant.scheme import required_quant_dtype
 
 _SAVE_FORMAT = 3
 
-_NOT_PORTED = ("not ported to repro_torch yet (ROADMAP.md, 'Modules to "
-               "port', item {})")
-_DISTRIBUTION_ITEM = 5     # ROADMAP.md §1: distribution
-
 
 class SearchResult(NamedTuple):
     """One batched search: ids/dists (B, k) + per-query SearchStats."""
     ids: torch.Tensor
     dists: torch.Tensor
     stats: object
+
+
+def default_search_mesh(device) -> SearchMesh:
+    """The (data=1, model=1) mesh on ``device`` for the "sharded"
+    algorithm when the caller gives none: the reference's default
+    (1, n_devices) mesh on one card — one walker, the same code path."""
+    return make_search_mesh((1, 1), ("data", "model"), device=device)
 
 
 def normalize_queries(q: torch.Tensor) -> torch.Tensor:
@@ -396,8 +407,10 @@ class AnnIndex:
         on its device (``engine_kw`` forwards e.g. ``bucket_sizes``).
 
         The engine serves the single-device algorithms (bfis | topm |
-        speedann).  ``mesh`` is accepted only as None: the sharded paths
-        are not ported (``NotImplementedError``).  ``obs`` takes a
+        speedann) and, with ``SearchParams(algorithm="sharded")``, the
+        walker-sharded path: one Speed-ANN walker per position along
+        ``mesh``'s ``model`` axis, every position on the index's device
+        (``mesh=None``: the default (1, 1) mesh).  ``obs`` takes a
         :class:`repro_torch.obs.Observability` bundle for request-scoped
         tracing and convergence telemetry (None: the no-op ``NULL_OBS``)."""
         from repro_torch.serve.ann_engine import AnnEngine
@@ -558,10 +571,14 @@ class AnnIndex:
 
     # -- search ------------------------------------------------------------
 
-    def searcher(self, params: SearchParams = SearchParams()):
+    def searcher(self, params: SearchParams = SearchParams(), *,
+                 mesh: Optional[SearchMesh] = None):
         """A batched callable ``fn(queries (B, d)) -> SearchResult`` on the
-        index's device, cached per params."""
-        cached = self._searcher_cache.get(params)
+        index's device, cached per (params, mesh).  ``mesh`` is read by the
+        "sharded" algorithm only (None: :func:`default_search_mesh`); its
+        positions must sit on the index's device."""
+        key = (params, id(mesh) if mesh is not None else None)
+        cached = self._searcher_cache.get(key)
         if cached is not None:
             return cached
         need = required_quant_dtype(params.backend)
@@ -571,12 +588,21 @@ class AnnIndex:
                 f"this index has quant={self.spec.quant.dtype!r} — rebuild "
                 f"with IndexSpec(quant={need!r}) or pick a matching backend")
         algorithm = params.algorithm
-        if algorithm == "sharded":
-            raise NotImplementedError(
-                "algorithm='sharded': " + _NOT_PORTED.format(
-                    _DISTRIBUTION_ITEM))
         hnsw = self.hnsw
-        if algorithm == "bfis" and hnsw is not None:
+        if algorithm == "sharded":
+            if need != "none":
+                raise ValueError(
+                    "quantized backends are not wired into the sharded "
+                    "walker path; use a single-host algorithm "
+                    "(bfis | topm | speedann) with backend "
+                    f"{params.backend!r}")
+            the_mesh = (mesh if mesh is not None
+                        else default_search_mesh(self.device))
+            check_mesh_device(the_mesh, self.device)
+
+            def run(g, q, cfg):
+                return walker_sharded_search(g, q, cfg, the_mesh)
+        elif algorithm == "bfis" and hnsw is not None:
             # greedy upper-level descent, then Algorithm 1 at level 0
             def run(g, q, cfg):
                 return hnsw_search_batch(hnsw._replace(base=g), q, cfg)
@@ -621,13 +647,14 @@ class AnnIndex:
                 ids = remap_result_ids(ids, ofn, n_nodes)
             return SearchResult(ids, dists, stats)
 
-        self._searcher_cache[params] = fn
+        self._searcher_cache[key] = fn
         return fn
 
-    def search(self, queries,
-               params: SearchParams = SearchParams()) -> SearchResult:
-        """Search a (B, d) query batch with ``params.algorithm``."""
-        return self.searcher(params)(queries)
+    def search(self, queries, params: SearchParams = SearchParams(), *,
+               mesh: Optional[SearchMesh] = None) -> SearchResult:
+        """Search a (B, d) query batch with ``params.algorithm`` (the
+        walker-sharded path on ``mesh`` for "sharded")."""
+        return self.searcher(params, mesh=mesh)(queries)
 
     # -- ground truth ------------------------------------------------------
 

@@ -113,6 +113,62 @@ def expand_batch(
     n_uniq (B,)).  ``lane_mask`` (B,) names the lanes whose state the caller
     keeps: only they claim first-toucher credit (as in the reference), and
     only their visited maps are written (in place)."""
+    frontier, visited, up_pos, fresh, flat = _expand(
+        graph, queries, frontier, visited, m_max, m, dist_fn, lane_mask)
+    counted = fresh if lane_mask is None else fresh & lane_mask[:, None]
+    n_uniq = batch_unique_counts(flat, counted)
+    return frontier, visited, up_pos, \
+        fresh.sum(dim=-1, dtype=torch.int32), n_uniq
+
+
+def expand_lanes(
+    graph: PaddedCSR,
+    queries: torch.Tensor,
+    frontier: fq.Frontier,
+    visited: vs.Visited,
+    m_max: int,
+    m,
+    dist_fn: DistFn = dist_l2,
+    lane_mask: Optional[torch.Tensor] = None,
+) -> Tuple[fq.Frontier, vs.Visited, torch.Tensor, torch.Tensor]:
+    """:func:`expand` for B independent lanes at once (a (B, d) queries
+    tensor, one lane per row, such as the walker lanes of a sharded
+    search), with ONE ``dist_fn`` call over the (B, m_max, R) grid.  Lane
+    b's results equal ``expand`` on lane b alone.  Returns (frontier',
+    visited', update_positions (B,), n_comps (B,)); ``lane_mask`` (B,)
+    names the lanes whose visited maps are written (in place)."""
+    frontier, visited, up_pos, fresh, _ = _expand(
+        graph, queries, frontier, visited, m_max, m, dist_fn, lane_mask)
+    return frontier, visited, up_pos, fresh.sum(dim=-1, dtype=torch.int32)
+
+
+def expand(
+    graph: PaddedCSR,
+    q: torch.Tensor,
+    frontier: fq.Frontier,
+    visited: vs.Visited,
+    m_max: int,
+    m,
+    dist_fn: DistFn = dist_l2,
+) -> Tuple[fq.Frontier, vs.Visited, torch.Tensor, torch.Tensor]:
+    """Per-query expansion round (the ``core.distributed`` walker building
+    block): a (d,) query, an (L,) frontier and an (X,) visited table,
+    lifted to a B = 1 batch.  Returns (frontier', visited', update_position,
+    n_distance_comps); the table is updated in place.  A single lane has
+    no cross-lane overlap, so no first-toucher count is returned."""
+    lane = fq.Frontier(*(t[None] for t in frontier))
+    table = visited._replace(table=visited.table[None])   # a view
+    lane, _, up, n = expand_lanes(graph, q[None], lane, table, m_max, m,
+                                  dist_fn)
+    return fq.Frontier(*(t[0] for t in lane)), visited, up[0], n[0]
+
+
+def _expand(graph: PaddedCSR, queries: torch.Tensor, frontier: fq.Frontier,
+            visited: vs.Visited, m_max: int, m, dist_fn: DistFn,
+            lane_mask: Optional[torch.Tensor]):
+    """The expansion round shared by :func:`expand_batch` and
+    :func:`expand_lanes`; also returns the fresh mask and the (B, C)
+    candidate ids."""
     bsz = queries.shape[0]
     frontier, active_ids, active_valid = fq.select_unchecked(
         frontier, m_max, m)
@@ -126,10 +182,7 @@ def expand_batch(
     dists = torch.where(fresh, dists.reshape(bsz, -1), float("inf"))
     cand_ids = torch.where(fresh, flat, fq.INVALID_ID)
     frontier, up_pos, _ = fq.insert(frontier, cand_ids, dists)
-    counted = fresh if lane_mask is None else fresh & lane_mask[:, None]
-    n_uniq = batch_unique_counts(flat, counted)
-    return frontier, visited, up_pos, \
-        fresh.sum(dim=-1, dtype=torch.int32), n_uniq
+    return frontier, visited, up_pos, fresh, flat
 
 
 class _TopMState(NamedTuple):

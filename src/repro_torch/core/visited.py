@@ -105,9 +105,13 @@ def check_and_insert_batch(v: Visited, ids: torch.Tensor, valid: torch.Tensor,
     if v.mask == 0:  # loose mode: no memory; only in-batch dedup
         return v, valid & _first_occurrence(ids, valid)
 
-    # hash mode: bounded linear probing.  Which of several lanes claiming
-    # one empty slot wins is unspecified (as in the reference); the loser
-    # reads back a different key and probes on — benign.
+    # hash mode: bounded linear probing.  The reference scatters one write
+    # per lane (a claim of an empty slot; slot 0's own value back from a
+    # lane that claims nothing) and the last lane of a row wins.  The port
+    # writes the winning claims only, so its tables are the reference's and
+    # do not depend on a scatter's order: a claim is lost when a later lane
+    # of its row writes the same slot.  The loser reads back a different
+    # key and probes on — benign.
     table = v.table
     ids32 = ids.to(torch.int32)
     found = torch.zeros_like(valid)
@@ -115,13 +119,20 @@ def check_and_insert_batch(v: Visited, ids: torch.Tensor, valid: torch.Tensor,
     slot = _hash(ids, v.mask)
     rows = torch.arange(table.shape[0], device=ids.device)[:, None]
     rows = rows.expand_as(slot)
+    c = ids.shape[-1]
+    later = torch.ones((c, c), dtype=torch.bool,
+                       device=ids.device).triu(1)          # [i, j]: j > i
     for _ in range(_PROBES):
         cur = table.gather(-1, slot)
         # a lane that already claimed its slot must not read its own insert
         # back as a pre-existing hit
         hit = (cur == ids32) & valid & ~inserted
         empty = (cur == _EMPTY) & writable & ~found & ~inserted
-        table[rows[empty], slot[empty]] = ids32[empty]
+        target = torch.where(empty, slot, 0)
+        overwritten = torch.any(
+            (target.unsqueeze(-1) == target.unsqueeze(-2)) & later, dim=-1)
+        won = empty & ~overwritten
+        table[rows[won], slot[won]] = ids32[won]
         claimed = empty & (table.gather(-1, slot) == ids32)
         inserted = inserted | claimed
         found = found | hit

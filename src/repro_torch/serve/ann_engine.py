@@ -1,7 +1,7 @@
 """Batched ANN serving engine: a bucket ladder over the index's searchers.
 
-Port of ``repro.serve.ann_engine`` in its ``single`` mode.  Online traffic
-arrives as variable-size query batches.  The engine quantizes each batch
+Port of ``repro.serve.ann_engine``.  Online traffic arrives as
+variable-size query batches.  The engine quantizes each batch
 to a fixed ladder of *buckets* (powers of two by default), pads it up to
 the bucket with replicas of its first query, and serves it through the
 bucket's entry; batches larger than the top bucket are served in
@@ -22,11 +22,21 @@ an hnsw :class:`~repro_torch.ann.AnnIndex` enters through the upper-level
 descent).  The traversal loops end every step on a host sync, so a bucket
 is not captured as a CUDA graph.
 
-Queries enter as numpy or a tensor and go to the index's device; the
-padded chunk is built there; results come back to the host as numpy.  The
-sharded and corpus modes of the reference are not ported: a
-``ShardedIndex``, ``algorithm="sharded"`` or a ``mesh`` raises
-``NotImplementedError`` naming their ROADMAP item.
+Three dispatch modes (``engine.mode``), one ``search()`` API:
+
+* ``"single"`` — the single-device algorithms (bfis | topm | speedann);
+* ``"sharded"`` — ``SearchParams(algorithm="sharded")`` on the facade path:
+  every bucket goes through the index's walker-sharded searcher on
+  ``mesh`` (one walker per position of its ``model`` axis; ``mesh=None``
+  is the default (1, 1) mesh);
+* ``"corpus"`` — a :class:`~repro_torch.core.distributed.ShardedIndex` +
+  ``SearchParams`` + an explicit mesh whose ``model`` axis has one
+  position per shard: each shard is searched and the global top-K merged.
+
+In both sharded modes every bucket must split evenly over the mesh's
+``data`` axis.  Queries enter as numpy or a tensor and go to the index's
+(the mesh's) device; the padded chunk is built there; results come back to
+the host as numpy.
 
 Typical use::
 
@@ -44,13 +54,15 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.ann.index import (_DISTRIBUTION_ITEM, _NOT_PORTED, AnnIndex,
-                                   normalize_queries, remap_result_ids)
+from repro_torch.ann.index import (AnnIndex, normalize_queries,
+                                   remap_result_ids)
 from repro_torch.ann.spec import SearchParams
 from repro_torch.core.bfis import (DistFn, bfis_search_batch,
                                    hnsw_search_batch, resolve_dist_fn,
                                    search_topm_batch)
 from repro_torch.core.config import SearchConfig
+from repro_torch.core.distributed import (ShardedIndex,
+                                          corpus_engine_searcher)
 from repro_torch.core.metrics import (SearchStats, recall_at_k,
                                       telemetry_per_lane)
 from repro_torch.core.speedann import search_speedann_batch
@@ -70,14 +82,16 @@ _ALGORITHMS = {
 }
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: " + _NOT_PORTED.format(_DISTRIBUTION_ITEM))
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _mesh_data_size(mesh) -> int:
+    """Size of the mesh's query-sharding axis (1 when absent)."""
+    if mesh is None:
+        return 1
+    return int(dict(mesh.shape).get("data", 1))
 
 
 class ServeResult(NamedTuple):
@@ -105,16 +119,40 @@ class AnnEngine:
         metric: Optional[str] = None,
         obs: Optional[Observability] = None,
     ):
-        if mesh is not None:
-            raise _not_ported("AnnEngine(mesh=...)")
-        if hasattr(graph, "num_shards"):
-            raise _not_ported("AnnEngine(ShardedIndex)")
         self.obs = obs if obs is not None else NULL_OBS
         self.index: Optional[AnnIndex] = None
-        self.mesh = None
+        self.mesh = mesh
         self.mode = "single"
         self._normalize = False
+        self._corpus_fn = None
         ofn = None
+
+        if isinstance(graph, ShardedIndex):
+            # corpus-sharded mode: one shard per position of the mesh's
+            # model axis, global top-K merge across shards
+            if not isinstance(cfg, SearchParams):
+                raise ValueError(
+                    "corpus-sharded serving takes SearchParams (the "
+                    "ShardedIndex has no legacy SearchConfig path)")
+            if mesh is None:
+                raise ValueError(
+                    "corpus-sharded serving needs an explicit mesh whose "
+                    "'model' axis size equals index.num_shards "
+                    "(see core.distributed.make_search_mesh)")
+            if algorithm not in (None, "sharded"):
+                raise ValueError(
+                    "a ShardedIndex serves only the sharded dispatch; drop "
+                    f"algorithm={algorithm!r}")
+            self.mode = "corpus"
+            self.params = cfg
+            self.algorithm = "sharded"
+            self.cfg = cfg.to_search_config(metric or "l2")
+            self.graph = graph
+            self.device = mesh.device
+            self._corpus_fn = corpus_engine_searcher(
+                graph, cfg, mesh, metric=metric or "l2")
+            self._finish_init(bucket_sizes)
+            return
         if isinstance(graph, AnnIndex):
             self.index = graph
             graph = self.index.graph
@@ -141,8 +179,17 @@ class AnnEngine:
         if algorithm is None:
             algorithm = "speedann"
         if algorithm == "sharded":
-            raise _not_ported("algorithm='sharded'")
-        if algorithm not in _ALGORITHMS:
+            if self.params is None:
+                raise ValueError(
+                    "the legacy (graph, SearchConfig) engine serves the "
+                    f"single-host algorithms {tuple(_ALGORITHMS)}; the "
+                    "walker-sharded path serves through the facade — "
+                    "index.serve(SearchParams(algorithm='sharded'), "
+                    "mesh=...)")
+            # walker-sharded mode: every bucket dispatches through the
+            # facade's sharded searcher (core/distributed.py)
+            self.mode = "sharded"
+        elif algorithm not in _ALGORITHMS:
             raise ValueError(
                 f"unknown algorithm {algorithm!r}; one of "
                 f"{tuple(_ALGORITHMS)}")
@@ -173,6 +220,17 @@ class AnnEngine:
         if not bucket_sizes:
             raise ValueError("bucket_sizes must be non-empty")
         self.bucket_sizes = tuple(sorted(set(int(b) for b in bucket_sizes)))
+        if self.mode in ("sharded", "corpus"):
+            # sharded dispatch splits the padded batch over the mesh's
+            # data axis, so every bucket must divide
+            data = _mesh_data_size(self.mesh)
+            bad = [b for b in self.bucket_sizes if b % max(data, 1)]
+            if bad:
+                raise ValueError(
+                    f"bucket sizes {bad} are not divisible by the mesh's "
+                    f"data axis ({data}); sharded serving pads every batch "
+                    "to a bucket, so each bucket must split evenly over "
+                    "the query-sharding axis")
         # bucket -> its searcher; "jit cache" keeps the reference's name
         self._jit_cache: Dict[int, object] = {}
         # the counters below are read-modify-written by every request; a
@@ -212,9 +270,12 @@ class AnnEngine:
                 self.cache_hits += 1
                 return fn
             self.cache_misses += 1
-            if self.params is not None:
-                # every bucket shares the index's ONE cached searcher
-                fn = self.index.searcher(self.params)
+            if self.mode == "corpus":
+                fn = self._corpus_fn
+            elif self.params is not None:
+                # every bucket shares the index's ONE cached searcher (in
+                # sharded mode the mesh is part of its cache key)
+                fn = self.index.searcher(self.params, mesh=self.mesh)
             else:
                 fn = self._legacy_searcher()
             self._jit_cache[bucket] = fn

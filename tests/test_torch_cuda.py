@@ -4,7 +4,10 @@ The f32 gather-distance kernels to 1e-5 (exact on integer data); the int8
 kernels bit for bit; the bitonic co-sort exactly at every row length, and
 the frontier merge on it equal to ``queue.insert``; the gather kernels and
 searches through them past 65,535 query rows; index builds, live updates,
-the α-prune and the hnsw descent on the card equal to the CPU's.
+the α-prune and the hnsw descent on the card equal to the CPU's; the
+walker-sharded search on (1, 1) and (1, 4) meshes through every f32
+backend, and a 4-shard partitioned build, its corpus search and its engine,
+equal to the CPU's.
 
 Every test here needs a CUDA device (the kernels are CUDA C++ with no CPU
 mode) and skips without one.  The file imports no JAX, so it also runs on a
@@ -23,6 +26,12 @@ from repro_torch.core import (build_hnsw, exact_knn, knn_graph,
                               make_padded_csr, robust_prune_batch)
 from repro_torch.core.bfis import hnsw_search_batch, search_topm_batch
 from repro_torch.core.config import SearchConfig
+from repro_torch.core.distributed import (ShardedIndex,
+                                          build_partitioned_index,
+                                          corpus_engine_searcher,
+                                          make_search_mesh,
+                                          walker_sharded_search)
+from repro_torch.core.metrics import SearchStats
 from repro_torch.core.queue import INVALID_ID, Frontier, insert
 from repro_torch.core.speedann import search_speedann_batch
 from repro_torch.kernels import _cuda
@@ -796,3 +805,63 @@ def test_int8_replicas_from_threads_equal_one_engine(cuda_device, path):
         assert np.array_equal(g.dists, w.dists)
         for name, a, b in zip(w.stats._fields, w.stats, g.stats):
             assert np.array_equal(a, b), name
+
+
+# -- distribution on the card ----------------------------------------------
+
+def _on_cpu(graph):
+    return graph._replace(**{f: t.cpu() for f, t in graph._asdict().items()
+                             if isinstance(t, torch.Tensor)})
+
+
+@pytest.mark.parametrize("backend", ["ref", "rowgather", "dma",
+                                     "dedup_gather"])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 4)])
+def test_walker_sharded_on_card_equals_cpu(cuda_device, backend, shape):
+    index, q = _serve_index()
+    q = torch.from_numpy(q[:16])
+    cfg = SearchConfig(k=10, queue_len=32, m_max=4, global_rounds=6,
+                       dist_backend=backend)
+    _cuda.reset_launches()
+    got = walker_sharded_search(index.graph, q.cuda(), cfg,
+                                make_search_mesh(shape))
+    torch.cuda.synchronize()
+    kernel = {"ref": None, "rowgather": "l2dist_rowgather",
+              "dma": "l2dist_dma", "dedup_gather": "dedupdist"}[backend]
+    assert sum(_cuda.LAUNCHES.values()) == _cuda.LAUNCHES.get(kernel, 0)
+    assert kernel is None or _cuda.LAUNCHES[kernel] > 0
+    want = walker_sharded_search(_on_cpu(index.graph), q, cfg,
+                                 make_search_mesh(shape, device="cpu"))
+    for name, g, w in zip(("ids", "dists") + SearchStats._fields,
+                          (got[0], got[1], *got[2]),
+                          (want[0], want[1], *want[2])):
+        assert torch.equal(g.cpu(), w), name
+
+
+def test_corpus_on_card_equals_cpu(cuda_device):
+    """A 4-shard partition built on the card equals the CPU build, and its
+    corpus search and engine on a (1, 4) mesh equal the CPU's."""
+    rng = np.random.RandomState(41)
+    x = rng.randint(0, 256, size=(2000, 32)).astype(np.float32)
+    q = x[rng.choice(2000, 16, replace=False)] + 1
+    spec = IndexSpec(degree=16, build_batch=512, build_backend="rowgather")
+    card = build_partitioned_index(x, 4, spec)
+    cpu = build_partitioned_index(x, 4, spec.with_(build_batch=32,
+                                                   build_backend="ref"),
+                                  device="cpu")
+    for f in ShardedIndex._fields:
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    params = SearchParams(k=10, queue_len=32, backend="rowgather")
+    _cuda.reset_launches()
+    got = corpus_engine_searcher(card, params, make_search_mesh((1, 4)))(q)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["l2dist_rowgather"] > 0
+    want = corpus_engine_searcher(cpu, params, make_search_mesh(
+        (1, 4), device="cpu"))(q)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    engine = AnnEngine(card, params, mesh=make_search_mesh((2, 4)),
+                       bucket_sizes=(2, 4, 8, 16))
+    served = engine.search(q[:5])
+    assert np.array_equal(served.ids, want[0][:5].numpy())
+    assert np.array_equal(served.dists, want[1][:5].numpy())

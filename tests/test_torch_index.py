@@ -129,10 +129,12 @@ def test_exact_matches_reference(files, data, name):
 def test_not_ported_paths_raise(files, data, tmp_path):
     x, q = data
     l2 = TIndex.load(files["l2"][1], device="cpu")
-    # distribution is not ported: it raises, naming its ROADMAP item
-    # (serving is ported: tests/test_torch_serve.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        l2.search(q, TParams(algorithm="sharded"))
+    # every path once refused answers as the reference: the walker-sharded
+    # search on the default mesh (tests/test_torch_distributed*.py hold
+    # the rest of the distribution; serving: tests/test_torch_serve.py)
+    params = dict(PARAMS, algorithm="sharded", global_rounds=6)
+    _same(files["l2"][0].search(q, JParams(**params)),
+          l2.search(q, TParams(**params)), "l2")
     # build, add, delete and bfis on an hnsw file are ported: each equals
     # the reference
     spec = dict(degree=12, passes=1, metric="l2")

@@ -6,10 +6,8 @@ the same stream of requests, and every request must give the same ids,
 dists, all eight ``SearchStats`` counters and buckets; the engines' padding
 and cache counters, ``stats()`` keys and their order must be the
 reference's.  The facade path, the legacy ``(PaddedCSR, SearchConfig)``
-path and the hnsw descent are covered; the sharded modes raise.
+path, the hnsw descent and the two sharded modes are covered.
 """
-from typing import NamedTuple
-
 import numpy as np
 import pytest
 import torch
@@ -17,10 +15,12 @@ import torch
 from repro.ann import AnnIndex as JIndex
 from repro.ann import IndexSpec as JSpec
 from repro.ann import SearchParams as JParams
+from repro.core import distributed as jd
 from repro.core.config import SearchConfig as JConfig
 from repro.serve import AnnEngine as JEngine
 from repro_torch.ann import AnnIndex as TIndex
 from repro_torch.ann import SearchParams as TParams
+from repro_torch.core import distributed as td
 from repro_torch.core.config import SearchConfig as TConfig
 from repro_torch.serve import AnnEngine as TEngine
 from repro_torch.serve import AsyncAnnEngine
@@ -193,24 +193,62 @@ def test_serve_entry_points(files):
     srv.close()
 
 
-class _ShardedStandIn(NamedTuple):
-    """What an engine can see of a corpus-sharded index: ``num_shards``."""
-    num_shards: int = 2
-
-
-def test_sharded_modes_raise_naming_their_item(files):
-    _, path = files["l2"]
+def test_sharded_modes_raise_naming_their_item(files, data):
+    """The sharded modes, refused before the distribution was ported, now
+    answer as the reference's engine does on the (1, 1) mesh (larger
+    meshes: tests/test_torch_distributed*.py); the legacy engine still
+    refuses ``algorithm="sharded"`` with the reference's ValueError."""
+    ref_idx, path = files["l2"]
     port = TIndex.load(path, device="cpu")
-    for call in (lambda: port.serve(TParams(algorithm="sharded")),
-                 lambda: port.serve(TParams(), mesh=object()),
-                 lambda: port.serve_async(TParams(), mesh=object()),
-                 lambda: TEngine(_ShardedStandIn(), TParams()),
-                 lambda: TEngine(port.graph, TConfig(),
-                                 algorithm="sharded"),
-                 lambda: port.search(np.zeros((1, 24), np.float32),
-                                     TParams(algorithm="sharded"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-            call()
+    x, q = data
+    jmesh = jd.make_search_mesh((1, 1))
+    tmesh = td.make_search_mesh((1, 1), device="cpu")
+    sharded = dict(PARAMS, algorithm="sharded", global_rounds=6)
+    # the walker-sharded engine, on the default mesh and on a given one
+    for jm, tm in ((None, None), (jmesh, tmesh)):
+        ref = JEngine(ref_idx, JParams(**sharded), mesh=jm,
+                      bucket_sizes=BUCKETS)
+        got = port.serve(TParams(**sharded), mesh=tm, bucket_sizes=BUCKETS)
+        assert got.mode == ref.mode == "sharded"
+        for req in (q[:3], q[3:4]):
+            _same_result(ref.search(req), got.search(req))
+    # a single-host engine keeps the mesh it is given, unread
+    ref = JEngine(ref_idx, JParams(**PARAMS), mesh=jmesh,
+                  bucket_sizes=BUCKETS)
+    got = port.serve(TParams(**PARAMS), mesh=tmesh, bucket_sizes=BUCKETS)
+    _same_result(ref.search(q[:3]), got.search(q[:3]))
+    # serve_async with a mesh: each coalesced answer is the direct one
+    direct = ref_idx.search(q[:3], JParams(**sharded))
+    srv = port.serve_async(TParams(**sharded), mesh=tmesh, start=False,
+                           bucket_sizes=BUCKETS)
+    try:
+        futs = [srv.submit(v) for v in q[:3]]
+        srv.flush()
+        for i, f in enumerate(futs):
+            np.testing.assert_array_equal(f.result().ids,
+                                          np.asarray(direct.ids)[i])
+    finally:
+        srv.close()
+    # the corpus engine over a one-shard partition
+    jshards = jd.build_partitioned(x[:400], 1, degree=8, ef_construction=16,
+                                   passes=1)
+    tshards = td.ShardedIndex(*(torch.from_numpy(np.array(t))
+                                for t in jshards))
+    ref = JEngine(jshards, JParams(**PARAMS), mesh=jmesh,
+                  bucket_sizes=BUCKETS)
+    got = TEngine(tshards, TParams(**PARAMS), mesh=tmesh,
+                  bucket_sizes=BUCKETS)
+    assert got.mode == ref.mode == "corpus"
+    _same_result(ref.search(q[:3]), got.search(q[:3]))
+    # the facade's sharded search
+    want = ref_idx.search(q[:2], JParams(**sharded))
+    have = port.search(q[:2], TParams(**sharded))
+    np.testing.assert_array_equal(have.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_array_equal(have.dists.numpy(), np.asarray(want.dists))
+    for mod, graph, cfg in ((JEngine, ref_idx.graph, JConfig()),
+                            (TEngine, port.graph, TConfig())):
+        with pytest.raises(ValueError, match="facade"):
+            mod(graph, cfg, algorithm="sharded")
 
 
 def test_bad_arguments_raise_as_reference(files):
