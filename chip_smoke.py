@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the port's Speed-ANN search, serving and build paths on one GPU.
+"""Run the port's Speed-ANN search, serving and build paths, and its LM
+with kNN-LM retrieval, on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--profile-src DIR]
 
@@ -25,7 +26,11 @@ Phases, one JSON line each:
                B = 65,573 × C = 32 (more query rows than a grid's y
                dimension holds), exactly; sort_pairs exactly on (512, 256),
                (512, 512), (64, 1024), (32, 2048) and (4, 16384) rows with
-               heavy key ties and +inf padding;
+               heavy key ties and +inf padding; and the three f32 gather
+               kernels at the LM's width, d = 2048, on a 131,072-row
+               integer table (f32 and bf16, coordinates in [0, 15]) at
+               every (B, C) of phase 15 (KNNLM_SHAPES), exactly equal to
+               their plain versions and to one another;
   4. data    — 1M SIFT-like vectors: 1000 Gaussian clusters rescaled and
                rounded to integers in [0, 255], plus 264 queries;
   5. graph   — a fixture graph (the port's kNN-24 plus 8 uniform random
@@ -132,7 +137,27 @@ Phases, one JSON line each:
                AnnEngine on a (1, 4) mesh: ids in range, recall@10 against
                the exact kNN of the whole corpus at least 0.25, the engine
                equal to the direct search, p50 and profile as above.  The
-               kernels line's rows gain ``launches_sharded``.
+               kernels line's rows gain ``launches_sharded``;
+ 15. knnlm   — qwen2.5-3b at full width and depth, random weights from
+               --seed: the port's CausalLM at 2 layers on the card against
+               the CPU (f32 to 1e-4; bf16 no farther apart than the
+               farther of the two from f32); ServeEngine on 8
+               prompts of 512 tokens, 32 greedy steps, replayed step by
+               step against the teacher-forced forward (prefill ms, decode
+               ms a step beside its byte bound, tokens/s, peak memory, one
+               profiled decode step); build_datastore over 16 TokenStream
+               batches (131,072 keys × 2048, degree 16, rowgather,
+               build_batch 8192): forward and build seconds, stage seconds,
+               peak memory, l2dist_rowgather its only kernel;
+               knnlm_logits (λ 0.25, τ 10) on 64 held-out prompts of 256
+               tokens through ref, rowgather, dma and dedup_gather (k = 16,
+               L = 128, M = 8, W = 8), each launching its own kernel only:
+               probabilities summing to 1, ids below N, distances the exact
+               ones of their ids, recall@16 within 0.02 of ref's, the first
+               8 equal to the CPU's on the saved datastore; every (B, C)
+               its gathers took held in phase 3; the call's parts (p50 of
+               5) and one profiled call.  The kernels line's rows gain
+               ``launches_knnlm``.
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -200,6 +225,44 @@ GATHER_SHAPES = ([(512, 32), (64, 256), (64, 250), (300, 1000),
                   (BUILD_BATCH, 128)]
                  + sorted({(w * b, 32) for b in SERVE_BUCKETS if b < 64
                            for w in (1, 8)} - {(512, 32)}))
+# phase 15 (knnlm): qwen2.5-3b at full width and depth, the reference's own
+# kNN-LM model.  ServeEngine: KNNLM_PROMPTS prompts of KNNLM_PROMPT_LEN
+# tokens, KNNLM_STEPS greedy steps.  The datastore: KNNLM_BATCHES TokenStream
+# batches of KNNLM_STREAM_BATCH rows × KNNLM_SEQ_LEN tokens (1,025 inputs,
+# 1,024 keys a row): 16 × 8 × 1,024 = 131,072 keys of d_model 2,048.
+KNNLM_ARCH = "qwen2.5-3b"
+KNNLM_PROMPTS, KNNLM_PROMPT_LEN, KNNLM_STEPS = 8, 512, 32
+KNNLM_SEQ_LEN, KNNLM_STREAM_BATCH, KNNLM_BATCHES = 1026, 8, 16
+KNNLM_KEYS = KNNLM_BATCHES * KNNLM_STREAM_BATCH * (KNNLM_SEQ_LEN - 2)
+KNNLM_D = 2048                # qwen2.5-3b's d_model: the keys' width
+KNNLM_DEGREE = 16             # build_datastore's default degree
+KNNLM_QUERIES, KNNLM_QUERY_LEN = 64, 256   # held-out prompts
+KNNLM_CPU_QUERIES = 8         # prompts held to the CPU's knnlm_logits
+KNNLM_WALKERS = 8
+KNNLM_LAM, KNNLM_TAU = 0.25, 10.0
+KNNLM_REPS = 5                # timed kNN-LM calls (p50)
+
+
+def knnlm_gather_shapes(n_keys: int, build_batch: int = BUILD_BATCH,
+                        degree: int = KNNLM_DEGREE,
+                        queries: int = KNNLM_QUERIES,
+                        walkers: int = KNNLM_WALKERS):
+    """Every (B, C) a gather kernel may see in phase 15.  The build's
+    candidate searches (topm, M = 1, 2, 4: C = M·R) run over chunks of
+    ``build_batch`` of the insertion rounds 1, 1, 2, 4, ... (the first
+    point is placed bare); the retrieval's speedann expands the entry
+    (queries × R) and then one vertex a walker (queries·W × R)."""
+    chunks, inserted = set(), 1
+    while inserted < n_keys:
+        take = min(inserted, n_keys - inserted)
+        chunks |= {min(build_batch, take - s)
+                   for s in range(0, take, build_batch)}
+        inserted += take
+    return sorted({(b, m * degree) for b in chunks for m in (1, 2, 4)}
+                  | {(queries, degree), (queries * walkers, degree)})
+
+
+KNNLM_SHAPES = knnlm_gather_shapes(KNNLM_KEYS)
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "l2dist_rowgather": ("src/repro_torch/csrc/rowgather.cu",
@@ -442,6 +505,57 @@ def check_kernels(seed: int):
     del tables, table, ids, q
     torch.cuda.empty_cache()
     return err, cases
+
+
+def check_wide_kernels(seed: int):
+    """Phase 3 at the LM's width: l2dist_rowgather, l2dist_dma and
+    dedupdist on a KNNLM_KEYS × 2048 integer table, f32 and bf16
+    (coordinates and queries in [0, 15], so every l2 and ip sum is exact:
+    at most 225 · 2048 < 2^24), at every (B, C) of KNNLM_SHAPES, each
+    exactly equal to its plain version and the three to one another.
+    Returns (cases, the dedup tile and dma plan at the widest call)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dedup import dedupdist, tile_lanes
+    from repro_torch.kernels.l2dist import (dma_plan, l2dist_dma,
+                                            l2dist_rowgather)
+
+    kern = {"l2dist_rowgather": (l2dist_rowgather, ref.dist_ref),
+            "l2dist_dma": (l2dist_dma, ref.dist_expanded_ref),
+            "dedupdist": (dedupdist, ref.dist_ref)}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    n, d = KNNLM_KEYS, KNNLM_D
+    base = torch.randint(0, 16, (n, d), generator=gen, device="cuda").float()
+    cases, plans = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        table = base.to(dtype)
+        for b, c in KNNLM_SHAPES:
+            ids = random_ids(gen, n, b, c)
+            q = torch.randint(0, 16, (b, d), generator=gen,
+                              device="cuda").float()
+            for metric in ("l2", "ip"):
+                outs = []
+                for name, (fn, plain) in kern.items():
+                    got = fn(table, ids, q, metric=metric)
+                    if not torch.equal(got, plain(table, ids, q, metric)):
+                        raise AssertionError(
+                            f"{name} d={d} {dtype} {metric} ({b},{c}): not "
+                            f"exact on integer data")
+                    outs.append(got)
+                    cases += 1
+                if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                    raise AssertionError(
+                        f"d={d} {dtype} {metric} ({b},{c}): dma or dedup "
+                        f"differs from rowgather")
+        b, c = KNNLM_SHAPES[-1]
+        plans[str(dtype).split(".")[1]] = {
+            "shape": [b, c],
+            "dedup_tile": tile_lanes(d, d * table.element_size(), b, c),
+            "dma_plan": dma_plan(b, c, d, dtype)._asdict()}
+        del table
+    del base
+    torch.cuda.empty_cache()
+    return cases, plans
 
 
 def check_quant_sort_kernels(seed: int):
@@ -1839,6 +1953,408 @@ def construct(seed: int, base, more, queries, fixture_recall, smi,
     return out
 
 
+def _synced_ms(fn, *a, **kw):
+    """(fn(*a, **kw), its wall ms between two device syncs)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def bf16_pair_err(a, b, f32):
+    """(max |a − b|, max |a − f32|, max |b − f32|): two bf16 runs of one
+    model and the float32 run they approximate."""
+    return tuple(float((x - y).abs().max()) for x, y in ((a, b), (a, f32),
+                                                        (b, f32)))
+
+
+def lm_card_vs_cpu(cfg, seed: int):
+    """Phase 15 (2): the port's CausalLM at full width and 2 layers on the
+    card against the same weights on the CPU, on 2 prompts of 16 tokens.
+    float32: logits within rtol = atol = 1e-4.  bf16: the card's and the
+    CPU's logits no farther apart than the farther of the two is from the
+    float32 logits (two bf16 runs that round in different orders drift
+    apart by up to bf16's own error: at this width 0.03 on the CPU alone,
+    PERF.md §3), with the share beyond 2e-2 recorded."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+
+    small = dataclasses.replace(cfg, num_layers=2)
+    cpu = build_model(small, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    card = copy.deepcopy(cpu).to("cuda")
+    toks = torch.from_numpy(np.random.RandomState(seed + 9).randint(
+        0, cfg.vocab_size, size=(2, 16)))
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_d = dataclasses.replace(small, dtype=dtype)
+        m_cpu, m_card = build_model(cfg_d, device="cpu"), build_model(cfg_d)
+        with torch.inference_mode():
+            logits[dtype] = (m_cpu.forward(cpu, toks)[0].float(),
+                             m_card.forward(card, toks.cuda())[0].float()
+                             .cpu())
+    want, got = logits["float32"]
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    c_cpu, c_card = logits["bfloat16"]
+    pair, card_err, cpu_err = bf16_pair_err(c_card, c_cpu, want)
+    if pair > max(card_err, cpu_err):
+        raise AssertionError(f"bf16: card and CPU logits {pair} apart, "
+                             f"beyond their errors from f32 ({card_err}, "
+                             f"{cpu_err})")
+    beyond = (c_card - c_cpu).abs() > 2e-2 + 2e-2 * c_cpu.abs()
+    del cpu, card
+    torch.cuda.empty_cache()
+    return {"float32": {"max_abs_err": float((got - want).abs().max()),
+                        "rtol_atol": 1e-4},
+            "bfloat16": {"max_abs_card_cpu": pair,
+                         "max_abs_card_f32": card_err,
+                         "max_abs_cpu_f32": cpu_err,
+                         "beyond_2e-2": int(beyond.sum()),
+                         "logits": beyond.numel()}}
+
+
+def lm_engine(model, params, seed: int):
+    """Phase 15 (3): ServeEngine on qwen2.5-3b: KNNLM_PROMPTS prompts of
+    KNNLM_PROMPT_LEN tokens, KNNLM_STEPS greedy steps.  The prefill and
+    decode steps are then replayed on the generated tokens, and the logits
+    that picked each token are held to the teacher-forced ``forward`` over
+    prompt + generated tokens at its position: no farther from it than the
+    farther of the two is from the float32 forward (bf16 runs of another
+    shape round in another order).  Each token is that forward's argmax
+    wherever its top-2 margin exceeds twice the replay's largest
+    |difference| in its row (there the two argmaxes must agree).  Prefill
+    ms, decode ms a step (p50), tokens/s, peak memory, and the decode step
+    beside the bytes it must move (every weight in its stored dtype, the
+    filled caches)."""
+    import dataclasses
+    import torch
+    from repro_torch.data.tokens import TokenStream, _batch_at
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = model.cfg
+    b, plen, steps = KNNLM_PROMPTS, KNNLM_PROMPT_LEN, KNNLM_STEPS
+    prompts = torch.from_numpy(_batch_at(TokenStream(
+        cfg.vocab_size, plen + 1, b, seed + 7, 0, 1), 0)["tokens"]).cuda()
+    s_max = plen + steps
+    eng = ServeEngine(model, params, s_max=s_max)
+    eng.generate(prompts[:, :16], steps=2)                    # warm
+    torch.cuda.reset_peak_memory_stats()
+    (gen, _), gen_ms = _synced_ms(eng.generate, prompts, steps)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        pre_ms, step_ms = [], []
+        for _ in range(3):
+            (logits, state), ms = _synced_ms(model.prefill, params,
+                                             prompts, s_max)
+            pre_ms.append(ms)
+        picked = [logits[:, 0].float()]
+        for t in range(steps):
+            (logits, state), ms = _synced_ms(model.decode_step, params,
+                                             state, gen[:, t:t + 1])
+            step_ms.append(ms)
+            if t + 1 < steps:
+                picked.append(logits[:, 0].float())
+        picked = torch.stack(picked, dim=1)                   # (B, steps, V)
+        seq = torch.cat([prompts, gen.long()], 1)
+        window = slice(plen - 1, plen - 1 + steps)
+        tf = model.forward(params, seq)[0][:, window].float()
+        f32 = build_model(dataclasses.replace(cfg, dtype="float32")).forward(
+            params, seq)[0][:, window]
+    pair, replay_err, tf_err = bf16_pair_err(picked, tf, f32)
+    del f32
+    if pair > max(replay_err, tf_err):
+        raise AssertionError(f"ServeEngine: replayed logits {pair} from the "
+                             f"teacher-forced ones, beyond their errors from "
+                             f"f32 ({replay_err}, {tf_err})")
+    eps = (picked - tf).abs().amax(dim=-1)                    # (B, steps)
+    top2 = torch.topk(tf, 2, dim=-1).values
+    checked = top2[..., 0] - top2[..., 1] > 2 * eps
+    agree = gen.long() == tf.argmax(-1)
+    if not bool(agree[checked].all()):
+        raise AssertionError(f"ServeEngine: {int((~agree & checked).sum())} "
+                             f"greedy tokens differ from the teacher-forced "
+                             f"argmax")
+    if not torch.equal(gen.long(), picked.argmax(-1)):
+        raise AssertionError("ServeEngine: the replayed steps pick other "
+                             "tokens than generate")
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    cache_bytes = sum(t.numel() * t.element_size() for t in state.caches)
+    bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    p50 = float(np.median(step_ms))
+    return {"prompts": b, "prompt_len": plen, "steps": steps,
+            "s_max": s_max, "generate_ms": gen_ms,
+            "generate_tokens_per_s": b * steps / (gen_ms / 1e3),
+            "prefill_ms": pre_ms, "prefill_p50_ms": float(np.median(pre_ms)),
+            "decode_ms": step_ms, "decode_p50_ms": p50,
+            "decode_tokens_per_s": b / (p50 / 1e3),
+            "decode_bound_ms": bound_ms, "decode_bound_by": "bytes",
+            "decode_bound_bytes": {"weights": w_bytes, "caches": cache_bytes},
+            "peak_bytes": peak,
+            "max_abs_replay_teacher": pair, "max_abs_replay_f32": replay_err,
+            "max_abs_teacher_f32": tf_err,
+            "tokens_checked": int(checked.sum()),
+            "tokens_near_tie": int((~checked).sum()),
+            "tokens_equal_teacher_argmax": int(agree.sum())}, state
+
+
+def knnlm_datastore(model, params, seed: int, n_batches: int):
+    """Phase 15 (4): ``build_datastore`` over ``n_batches`` TokenStream
+    batches, degree 16, l2, build_batch BUILD_BATCH, rowgather: forward and
+    build seconds, tokens/s, the build's stage seconds, peak memory,
+    launches (l2dist_rowgather only) and the (B, C) its gathers took."""
+    import torch
+    from repro_torch.data.tokens import TokenStream, _batch_at
+    from repro_torch.serve import knnlm as tk
+
+    stream = TokenStream(model.cfg.vocab_size, KNNLM_SEQ_LEN,
+                         KNNLM_STREAM_BATCH, seed, 0, 1)
+    batches = [torch.from_numpy(_batch_at(stream, i)["tokens"]).cuda()
+               for i in range(n_batches)]
+    real, fwd_ms, seen = tk._final_hidden, [], set()
+
+    def timed(*a, **kw):
+        out, ms = _synced_ms(real, *a, **kw)
+        fwd_ms.append(ms)
+        return out
+    tk._final_hidden = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with StageClock() as clock, recording_shapes(seen):
+            t0 = time.perf_counter()
+            ds, launches = counted(
+                tk.build_datastore, model, params, batches,
+                model.cfg.vocab_size, degree=KNNLM_DEGREE, metric="l2",
+                build_batch=BUILD_BATCH, build_backend="rowgather")
+            total = time.perf_counter() - t0
+    finally:
+        tk._final_hidden = real
+    check_launches({"knnlm_build/rowgather": launches})
+    fwd_s = sum(fwd_ms) / 1e3
+    tokens = sum(int(t.numel()) for t in batches)
+    return ds, stream, seen, {
+        "batches": n_batches, "tokens": tokens, "keys": ds.graph.n_nodes,
+        "d": ds.graph.dim, "keys_bytes": ds.graph.vectors.numel() * 4,
+        "forward_seconds": fwd_s, "forward_tokens_per_s": tokens / fwd_s,
+        "build_seconds": total - fwd_s, "stage_seconds": clock.seconds,
+        "total_seconds": total,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "mean_out_degree": float((ds.graph.nbrs < ds.graph.n_nodes)
+                                 .sum(dim=1).double().mean())}
+
+
+def knnlm_queries(model, params, stream, first_step: int):
+    """KNNLM_QUERIES held-out prompts of KNNLM_QUERY_LEN tokens (rows of
+    the stream's later steps), their last hidden states and last LM
+    logits."""
+    import torch
+    from repro_torch.data.tokens import _batch_at
+    from repro_torch.serve import knnlm as tk
+
+    steps = KNNLM_QUERIES // KNNLM_STREAM_BATCH
+    qs = torch.from_numpy(np.concatenate([
+        _batch_at(stream, first_step + i)["tokens"][:, :KNNLM_QUERY_LEN]
+        for i in range(steps)])).cuda()
+    with torch.inference_mode():
+        hidden = tk._final_hidden(model, params, qs)[:, -1]
+        lm = model.forward(params, qs)[0][:, -1]
+    return qs, hidden, lm
+
+
+def knnlm_retrieval(ds, hidden, lm, seen, path_launches):
+    """Phase 15 (5): ``knnlm_logits`` (λ = 0.25, τ = 10) through ref,
+    rowgather, dma and dedup_gather: each kernel backend launching its own
+    kernel only, ref none; mixed log-probs finite, their exp summing to 1 ±
+    1e-3 a row; every id below N; each backend's distances the exact f32
+    distances of its ids (1e-5 relative); recall@16 against the exact kNN
+    within 0.02 of ref's.  The first KNNLM_CPU_QUERIES rows equal the CPU's
+    ``knnlm_logits`` on the saved datastore: ids equal but at near-ties
+    (equal distance lists), log-probs within 2·1e-5·max(dist)/τ + 1e-4 (a
+    1e-5 relative distance error moves the exponent by that much)."""
+    import torch
+    from repro_torch.ann import AnnIndex, SearchParams
+    from repro_torch.core import recall_at_k
+    from repro_torch.serve import knnlm as tk
+
+    params = SearchParams(k=16, queue_len=128, m_max=8,
+                          num_walkers=KNNLM_WALKERS, algorithm="speedann")
+    n = ds.graph.n_nodes
+    keys = ds.graph.vectors
+    hq = hidden.float()
+    gt, _ = ds.index.exact(hq, 16)
+    out, res = {}, {}
+    for be in BACKENDS:
+        p = params.with_(backend=be)
+        with (recording_shapes(seen) if be == "rowgather"
+              else contextlib.nullcontext()):
+            (mixed, ids), path_launches[f"knnlm/{be}"] = counted(
+                tk.knnlm_logits, ds, hidden, lm, p, lam=KNNLM_LAM,
+                tau=KNNLM_TAU)
+        sr = ds.index.search(hq, p)
+        if not torch.equal(sr.ids, ids):
+            raise AssertionError(f"knnlm {be}: search ids differ from "
+                                 f"knnlm_logits' ids")
+        if not bool(torch.isfinite(mixed).all()):
+            raise AssertionError(f"knnlm {be}: mixed log-probs not finite")
+        total = mixed.double().exp().sum(-1)
+        if float((total - 1).abs().max()) > 1e-3:
+            raise AssertionError(f"knnlm {be}: probabilities sum to "
+                                 f"{total.min().item()}..{total.max().item()}")
+        if not bool((ids < n).all()) or not bool((ids >= 0).all()):
+            raise AssertionError(f"knnlm {be}: an id outside [0, N)")
+        exact = ((keys[ids.long()].double() - hq.double()[:, None]) ** 2
+                 ).sum(-1)
+        rel = float(((sr.dists.double() - exact).abs()
+                     / exact.clamp(min=1e-30)).max())
+        if rel > 1e-5:
+            raise AssertionError(f"knnlm {be}: distances {rel} off the "
+                                 f"exact f32 distances of their ids")
+        recall = recall_at_k(ids.cpu(), gt.cpu(), 16)
+        res[be] = (mixed, ids, sr.dists)
+        out[be] = {"recall_at_16": recall, "max_rel_dist_err": rel,
+                   "launches": path_launches[f"knnlm/{be}"],
+                   "prob_sum_max_err": float((total - 1).abs().max())}
+    for be in BACKENDS[1:]:
+        if abs(out[be]["recall_at_16"] - out["ref"]["recall_at_16"]) > 0.02:
+            raise AssertionError(f"knnlm {be}: recall@16 "
+                                 f"{out[be]['recall_at_16']} against ref's "
+                                 f"{out['ref']['recall_at_16']}")
+    check_launches({p: path_launches[p] for p in path_launches
+                    if p.startswith("knnlm/")})
+
+    # the first rows against the CPU on the saved datastore
+    k = KNNLM_CPU_QUERIES
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ds.index.save(os.path.join(tmp, "datastore.npz"))
+        cpu_ds = tk.KNNLMDatastore(AnnIndex.load(path, device="cpu"),
+                                   ds.values.cpu(), ds.vocab_size)
+    p = params.with_(backend="rowgather")
+    c_mixed, c_ids = tk.knnlm_logits(cpu_ds, hidden[:k].cpu(), lm[:k].cpu(),
+                                     p, lam=KNNLM_LAM, tau=KNNLM_TAU)
+    c_dists = cpu_ds.index.search(hq[:k].cpu(), p).dists
+    g_mixed, g_ids, g_dists = (t[:k].cpu() for t in res["rowgather"])
+    same = (c_ids == g_ids).all(dim=1)
+    near = (c_dists - g_dists).abs() <= 1e-5 * c_dists.abs()
+    if not bool(near[~same].all()):
+        raise AssertionError("knnlm: card ids differ from the CPU's beyond "
+                             "near-ties")
+    tol = 2 * 1e-5 * float(c_dists.max()) / KNNLM_TAU + 1e-4
+    err = float((c_mixed[same] - g_mixed[same]).abs().max()) \
+        if bool(same.any()) else 0.0
+    if not bool(same.any()) or err > tol:
+        raise AssertionError(f"knnlm: card log-probs {err} off the CPU's "
+                             f"(tolerance {tol}; rows equal {same.tolist()})")
+    out["cpu"] = {"rows": k, "rows_ids_equal": int(same.sum()),
+                  "max_abs_logprob_err": err, "tolerance": tol}
+    return out, params
+
+
+def knnlm_timings(model, params, ds, qs, sparams):
+    """Phase 15 (6): each part of one kNN-LM call over the held-out
+    prompts (LM forward, hidden states, retrieval through rowgather, the
+    mix), p50 of KNNLM_REPS, then the whole call under torch.profiler."""
+    import torch
+    from repro_torch.serve import knnlm as tk
+
+    p = sparams.with_(backend="rowgather")
+    index = ds.index
+    parts = {"lm_forward": [], "hidden": [], "retrieval": [], "mix": []}
+
+    def timed_search(*a, **kw):
+        out, ms = _synced_ms(type(index).search, index, *a, **kw)
+        parts["retrieval"].append(ms)
+        return out
+
+    def call(record: bool):
+        with torch.inference_mode():
+            lm, ms_f = _synced_ms(lambda: model.forward(params, qs)[0][:, -1])
+            h, ms_h = _synced_ms(
+                lambda: tk._final_hidden(model, params, qs)[:, -1])
+            _, ms_k = _synced_ms(tk.knnlm_logits, ds, h, lm, p,
+                                 lam=KNNLM_LAM, tau=KNNLM_TAU)
+        if record:
+            parts["lm_forward"].append(ms_f)
+            parts["hidden"].append(ms_h)
+            parts["mix"].append(ms_k - parts["retrieval"][-1])
+
+    index.search = timed_search
+    try:
+        call(False)
+        parts["retrieval"].clear()
+        for _ in range(KNNLM_REPS):
+            call(True)
+    finally:
+        del index.search
+    out = {k: {"p50_ms": float(np.median(v)), "ms": v}
+           for k, v in parts.items()}
+    out["call_p50_ms"] = sum(v["p50_ms"] for v in out.values())
+    out["profile_call"] = profile_call(lambda: call(False), "rowgather")
+    return out
+
+
+def knnlm_phase(seed: int, smi, n_batches: int = KNNLM_BATCHES):
+    """Phase 15: qwen2.5-3b at full width and depth on the card (random
+    weights from ``seed``); the port's CausalLM on the card against the
+    CPU at 2 layers; ServeEngine; the kNN-LM datastore of ``n_batches``
+    stream batches (8,192 keys each) built through l2dist_rowgather; the
+    retrieval and mix through every f32 backend; the call's split and its
+    profile.  Returns (the phase's line, its path launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(KNNLM_ARCH)
+    out = {"phase": "knnlm", "arch": cfg.name, "card": smi}
+    out["card_vs_cpu_2_layers"] = lm_card_vs_cpu(cfg, seed)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params, init_ms = _synced_ms(
+        model.init, torch.Generator(device="cuda").manual_seed(seed))
+    out["model"] = {
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": sum(p.numel() for p in params.parameters()),
+        "param_count": cfg.param_count(),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in params.parameters()),
+        "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+        "init_ms": init_ms, "peak_bytes": torch.cuda.max_memory_allocated()}
+    out["engine"], state = lm_engine(model, params, seed)
+    tok = torch.zeros((KNNLM_PROMPTS, 1), dtype=torch.long, device="cuda")
+    st = [state._replace(pos=state.pos - KNNLM_STEPS)]
+
+    def decode():
+        with torch.inference_mode():
+            st[0] = model.decode_step(params, st[0], tok)[1]
+    out["engine"]["profile_decode_step"] = profile_call(decode, "rowgather")
+    del state, st
+    torch.cuda.empty_cache()
+    path_launches = {}
+    ds, stream, seen, out["datastore"] = knnlm_datastore(model, params, seed,
+                                                         n_batches)
+    path_launches["knnlm_build/rowgather"] = out["datastore"]["launches"]
+    qs, hidden, lm = knnlm_queries(model, params, stream, n_batches)
+    out["retrieval"], sparams = knnlm_retrieval(ds, hidden, lm, seen,
+                                                path_launches)
+    unchecked = seen - set(knnlm_gather_shapes(ds.graph.n_nodes))
+    if not seen or unchecked:
+        raise AssertionError(f"knnlm gather shapes outside phase 3's: "
+                             f"{sorted(unchecked) or 'none recorded'}")
+    out["gather_shapes"] = len(seen)
+    out["timings"] = knnlm_timings(model, params, ds, qs, sparams)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    del model, params, ds, hidden, lm, qs
+    torch.cuda.empty_cache()
+    return out, path_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1869,6 +2385,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS may otherwise reduce bf16 products in bf16 (phase 15's model)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
@@ -1888,8 +2406,11 @@ def main() -> int:
     err, cases = check_kernels(args.seed)
     err2, cases2 = check_quant_sort_kernels(args.seed)
     err.update(err2)
+    cases3, wide = check_wide_kernels(args.seed)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "cases": cases + cases2, "max_abs_err_f32": err,
+          "cases": cases + cases2 + cases3, "max_abs_err_f32": err,
+          "d2048": {"cases": cases3, "shapes": len(KNNLM_SHAPES),
+                    "plans": wide},
           "tolerance": {"f32": 1e-5, "bf16": 2e-2, "integer": "exact",
                         "int8": "exact", "sort_pairs": "exact"}})
 
@@ -2038,6 +2559,13 @@ def main() -> int:
             # the construct phase's build is this kernel's second main path
             row["launches_construct"] = \
                 built["build"]["launches"]["l2dist_rowgather"]
+    knn, knn_launches = knnlm_phase(args.seed, smi)
+    emit(knn)
+    for row in rows:
+        # the datastore build and the four backends' knnlm_logits calls
+        n = sum(c[row["name"]] for c in knn_launches.values())
+        if n:
+            row["launches_knnlm"] = n
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

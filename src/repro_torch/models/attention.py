@@ -1,0 +1,185 @@
+"""Grouped-query attention with KV cache, RoPE/M-RoPE, sliding window.
+
+Port of ``repro.models.attention`` (plain torch: the reference has no
+kernel here).  Three entry points share one core:
+  * ``attend(..., mode="train")``   — full causal self-attention
+  * ``attend(..., mode="prefill")`` — causal, writes the cache
+  * ``attend(..., mode="decode")``  — one query step against the cache
+and ``kv_x=`` gives cross-attention.  The KV cache layout is
+(B, S_max, kv_heads, head_dim).  One device needs no sharding annotations,
+so the reference's ``shard(...)`` calls have no counterpart.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.common import apply_rope, normal_init
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor      # (B, S_max, kv_heads, head_dim)
+    v: torch.Tensor      # (B, S_max, kv_heads, head_dim)
+
+
+def attn_init(generator: torch.Generator, cfg: ModelConfig,
+              d_in: Optional[int] = None, dtype=None) -> dict:
+    d = d_in or cfg.d_model
+    h = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dtype = dtype or torch.float32
+    scale = 1.0 / (d ** 0.5)
+    p = {
+        "wq": normal_init(generator, (d, nq * h), scale, dtype),
+        "wk": normal_init(generator, (d, nkv * h), scale, dtype),
+        "wv": normal_init(generator, (d, nkv * h), scale, dtype),
+        "wo": normal_init(generator, (nq * h, cfg.d_model),
+                          1.0 / ((nq * h) ** 0.5), dtype),
+    }
+    if cfg.qkv_bias:
+        dev = generator.device
+        p["wq_b"] = torch.zeros((nq * h,), dtype=dtype, device=dev)
+        p["wk_b"] = torch.zeros((nkv * h,), dtype=dtype, device=dev)
+        p["wv_b"] = torch.zeros((nkv * h,), dtype=dtype, device=dev)
+    return p
+
+
+def _proj_qkv(p, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    h = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if "wq_b" in p:
+        q = q + p["wq_b"].to(dt)
+        k = k + p["wk_b"].to(dt)
+        v = v + p["wv_b"].to(dt)
+    return (q.reshape(b, s, nq, h), k.reshape(b, s, nkv, h),
+            v.reshape(b, s, nkv, h))
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig):
+    """Scaled dot-product attention with GQA head-group expansion.
+
+    q (B,Sq,Hq,D); k/v (B,Sk,Hkv,D); mask broadcastable (B,1,Sq,Sk) bool.
+
+    The reference's casts, one for one: q is scaled in f32 and cast back;
+    scores are the f32 sums of the storage-dtype products (its
+    ``preferred_element_type=f32``: bf16 products are exact in f32, so the
+    operands are widened and multiplied in f32); masked scores are −1e30;
+    the softmax runs in f32; probs are cast to v's dtype; the output sums
+    in f32 and is cast to q's dtype."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    groups = hq // hkv
+    qs = (q.float() / (d ** 0.5)).to(q.dtype)
+    qg = qs.reshape(b, sq, hkv, groups, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    # mask (B?, 1, Sq, Sk) -> (B?, 1, 1, Sq, Sk) for the group axis
+    scores = torch.where(mask[:, :, None, :, :], scores,
+                         torch.tensor(-1e30, dtype=scores.dtype,
+                                      device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def causal_mask(sq: int, sk: int, offset: int = 0, window: int = 0,
+                device=None) -> torch.Tensor:
+    """(1, 1, sq, sk) causal (+optional sliding window) mask."""
+    qi = torch.arange(sq, device=device)[:, None] + offset
+    ki = torch.arange(sk, device=device)[None, :]
+    m = ki <= qi
+    if window > 0:
+        m &= ki > qi - window
+    return m[None, None]
+
+
+def attend(
+    p,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mode: str = "train",
+    cache: Optional[KVCache] = None,
+    pos: Optional[torch.Tensor] = None,    # decode: (B,) current positions
+    kv_x: Optional[torch.Tensor] = None,   # cross-attention source
+    causal: bool = True,
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Attention block.  Decode writes this step's k/v into ``cache`` at
+    ``pos`` IN PLACE (the reference rewrites the whole cache through a
+    where-mask; the values are the same) and returns the same tensors."""
+    b, s, _ = x.shape
+    dev = x.device
+
+    if kv_x is not None:                          # cross-attention
+        q, _, _ = _proj_qkv(p, x, cfg)
+        _, k, v = _proj_qkv(p, kv_x, cfg)
+        if rope is not None:
+            q = apply_rope(q, *rope)
+        mask = torch.ones((1, 1, s, k.shape[1]), dtype=torch.bool,
+                          device=dev)
+        out = _sdpa(q, k, v, mask, cfg)
+        return _wo(p, out, cfg), None
+
+    q, k, v = _proj_qkv(p, x, cfg)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+
+    if mode == "train":
+        mask = (causal_mask(s, s, 0, cfg.sliding_window, device=dev)
+                if causal else torch.ones((1, 1, s, s), dtype=torch.bool,
+                                          device=dev))
+        out = _sdpa(q, k, v, mask, cfg)
+        return _wo(p, out, cfg), None
+
+    if mode == "prefill":
+        if cache is None:
+            raise ValueError("prefill needs a cache")
+        k_pad = torch.zeros_like(cache.k)
+        v_pad = torch.zeros_like(cache.v)
+        k_pad[:, :s] = k.to(cache.k.dtype)
+        v_pad[:, :s] = v.to(cache.v.dtype)
+        mask = causal_mask(s, s, 0, cfg.sliding_window, device=dev)
+        out = _sdpa(q, k, v, mask, cfg)
+        return _wo(p, out, cfg), KVCache(k=k_pad, v=v_pad)
+
+    if mode == "decode":
+        if cache is None or pos is None:
+            raise ValueError("decode needs a cache and positions")
+        rows = torch.arange(b, device=dev)
+        p_long = pos.long()
+        cache.k[rows, p_long] = k[:, 0].to(cache.k.dtype)
+        cache.v[rows, p_long] = v[:, 0].to(cache.v.dtype)
+        # attend over positions <= pos (and window if set)
+        ki = torch.arange(cache.k.shape[1], device=dev)[None, None, None, :]
+        mask = ki <= p_long[:, None, None, None]
+        if cfg.sliding_window > 0:
+            mask &= ki > (p_long[:, None, None, None] - cfg.sliding_window)
+        out = _sdpa(q, cache.k, cache.v, mask, cfg)
+        return _wo(p, out, cfg), cache
+
+    raise ValueError(mode)
+
+
+def _wo(p, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    b, s, nq, h = out.shape
+    return out.reshape(b, s, nq * h) @ p["wo"].to(out.dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, n_kv: int,
+               dtype=torch.bfloat16, device=None) -> KVCache:
+    """Zeroed (batch, s_max, n_kv, head_dim) caches on ``device`` (default
+    CUDA)."""
+    dev = resolve_device(device)
+    h = cfg.resolved_head_dim
+    return KVCache(
+        k=torch.zeros((batch, s_max, n_kv, h), dtype=dtype, device=dev),
+        v=torch.zeros((batch, s_max, n_kv, h), dtype=dtype, device=dev))

@@ -1,0 +1,122 @@
+"""Shared model components: norms, rotary embeddings (incl. M-RoPE),
+initializers.  Port of ``repro.models.common``: the same functional (init,
+apply) pairs, where a layer's params are a mapping of tensors (a
+``nn.ParameterDict`` inside a model).  Every apply function computes in
+float32 inside and casts back to its input's dtype exactly where the
+reference does, so bf16 results agree to the rounding of the last cast."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; one of {tuple(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    """The activation/compute dtype (``cfg.dtype``)."""
+    return _torch_dtype(cfg.dtype)
+
+
+def pdtype_of(cfg: ModelConfig) -> torch.dtype:
+    """The parameter storage dtype (``cfg.param_dtype``)."""
+    return _torch_dtype(cfg.param_dtype)
+
+
+def normal_init(generator: torch.Generator, shape, scale: float,
+                dtype: torch.dtype) -> torch.Tensor:
+    """N(0, scale²) drawn in float32 from ``generator`` on its device, cast
+    to ``dtype``.  (Draws cannot reproduce ``jax.random``; parity with the
+    reference goes through ``models.convert.params_from_jax``.)"""
+    x = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (standard + M-RoPE)
+# ---------------------------------------------------------------------------
+
+def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> cos/sin (..., S, head_dim/2) in f32."""
+    inv = _inv_freq(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, int, int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE.
+
+    positions: (3, B, S) — temporal / height / width position ids.  The
+    head_dim/2 frequency slots are split into three contiguous sections,
+    each driven by its own position stream."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to "
+                         f"head_dim/2 = {half}")
+    inv = _inv_freq(head_dim, theta, positions.device)
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                   device=positions.device)
+                        for i, s in enumerate(sections)])
+    pos_sel = positions.float()[sec_id]                      # (half, B, S)
+    pos_sel = torch.movedim(pos_sel, 0, -1)                  # (B, S, half)
+    ang = pos_sel * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x (..., S, H, D); cos/sin (..., S, D/2) broadcast over heads."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].float()
+    x2 = x[..., half:].float()
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)

@@ -1,7 +1,7 @@
-# The port's serving stack (port of repro.serve, single-device): the
-# bucketed engine, the async coalescer with its cache and admission
-# control, and the replica router.  ServeEngine and the kNN-LM pair wait
-# for ROADMAP.md §1 item 6.
+# The port's serving stack (port of repro.serve, single-device): the LM
+# engine, the bucketed ANN engine, the async coalescer with its cache and
+# admission control, the replica router, and kNN-LM retrieval.
+from repro_torch.serve.engine import ServeEngine  # noqa: F401
 from repro_torch.serve.ann_engine import AnnEngine, ServeResult  # noqa: F401
 from repro_torch.serve.coalescer import AsyncAnnEngine  # noqa: F401
 from repro_torch.serve.coalescer import AsyncServeResult  # noqa: F401
@@ -14,4 +14,5 @@ from repro_torch.serve.admission import AdmissionRejected  # noqa: F401
 from repro_torch.serve.admission import PRIORITIES  # noqa: F401
 from repro_torch.serve.router import ReplicaRouter, RouterPolicy  # noqa: F401
 from repro_torch.serve.router import RouterResult  # noqa: F401
+from repro_torch.serve.knnlm import KNNLMDatastore, knnlm_logits  # noqa: F401
 from repro_torch.obs import Observability, NULL_OBS  # noqa: F401

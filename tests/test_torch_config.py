@@ -22,7 +22,14 @@ import repro_torch.ann.spec as t_spec
 import repro_torch.core.config as t_config
 import repro_torch.quant.scheme as t_scheme
 from repro_torch.ann import AnnIndex
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.graph import make_padded_csr
+from repro_torch.data import make_vector_dataset
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model
+from repro_torch.models.attention import init_cache
+from repro_torch.serve import ServeEngine
+from repro_torch.serve.knnlm import build_datastore
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -104,7 +111,18 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py"]
 
 
+# the LM slice's modules, held by name so that none can drop out of the scan
+LM_MODULES = ["config.py", "configs/__init__.py", "configs/qwen2_5_3b.py",
+              "models/common.py", "models/attention.py", "models/mlp.py",
+              "models/transformer.py", "models/registry.py",
+              "models/convert.py", "data/tokens.py", "data/vectors.py",
+              "serve/engine.py", "serve/knnlm.py", "launch/serve.py"]
+
+
 def test_port_imports_no_jax_and_nothing_of_repro():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in _port_files()[:-1]}
+    assert set(LM_MODULES) <= scanned, set(LM_MODULES) - scanned
     bad = []
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -138,3 +156,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
         AnnIndex.from_arrays(arrays)
     idx = AnnIndex.from_arrays(arrays, device="cpu")
     assert idx.device == g.device == torch.device("cpu")
+
+    # the LM slice: the model, its caches, the vector data, the launcher
+    cfg = get_smoke_config("qwen2.5-3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_vector_dataset(n=20, n_queries=2, k=2, dim=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--mode", "lm", "--smoke"])
+    # the model's device is where its engine and its datastore run
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    toks, _ = ServeEngine(model, params, s_max=8).generate(
+        np.zeros((1, 2), np.int64), steps=2)
+    assert toks.device == torch.device("cpu")
+    ds = build_datastore(model, params, [np.zeros((2, 5), np.int64)],
+                         cfg.vocab_size, degree=4)
+    assert ds.index.device == ds.values.device == torch.device("cpu")

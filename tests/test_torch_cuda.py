@@ -865,3 +865,100 @@ def test_corpus_on_card_equals_cpu(cuda_device):
     served = engine.search(q[:5])
     assert np.array_equal(served.ids, want[0][:5].numpy())
     assert np.array_equal(served.dists, want[1][:5].numpy())
+
+
+# -- the LM's width and the kNN-LM path on the card --------------------------
+
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_gather_kernels_exact_at_model_width(cuda_device, kernel):
+    """d = 2048 (qwen2.5-3b's hidden states): the dedup tile shrinks and
+    dma copies its runs in chunks.  Integer data in [0, 15] keeps every
+    sum exact, so each kernel equals its plain version and rowgather, for
+    a f32 and a bf16 table, at the datastore build's widest call."""
+    rng = np.random.RandomState(51)
+    x = rng.randint(0, 16, size=(4096, 2048)).astype(np.float32)
+    ids = torch.from_numpy(rng.randint(-2, 4100, size=(1024, 64))
+                           .astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.randint(0, 16, size=(1024, 2048))
+                         .astype(np.float32)).cuda()
+    fn, plain = KERNELS[kernel]
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.from_numpy(x).to("cuda", dtype)
+        for metric in ("l2", "ip"):
+            got = fn(table, ids, q, metric=metric)
+            assert torch.equal(got, plain(table, ids, q, metric))
+            assert torch.equal(got, l2dist_rowgather(table, ids, q,
+                                                     metric=metric))
+
+
+def _lm(arch, dtype):
+    """A smoke model on the CPU and a copy of it on the card."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    return cfg, cpu, copy.deepcopy(cpu).to("cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2-vl-7b"])
+def test_causal_lm_on_card_equals_cpu(cuda_device, arch, dtype, tol):
+    cfg, cpu, card = _lm(arch, dtype)
+    toks = torch.from_numpy(np.random.RandomState(52).randint(
+        0, cfg.vocab_size, size=(3, 12)))
+    want, _ = cpu.forward(cpu, toks)
+    got, _ = card.forward(card, toks.cuda())
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol,
+                               atol=tol)
+    lp_c, st_c = cpu.prefill(cpu, toks[:, :10], 14)
+    lp_g, st_g = card.prefill(card, toks[:, :10].cuda(), 14)
+    torch.testing.assert_close(lp_g.float().cpu(), lp_c.float(), rtol=tol,
+                               atol=tol)
+    for i in (10, 11):
+        ld_c, st_c = cpu.decode_step(cpu, st_c, toks[:, i:i + 1])
+        ld_g, st_g = card.decode_step(card, st_g, toks[:, i:i + 1].cuda())
+    dtol = 3e-2 if dtype == "bfloat16" else tol
+    torch.testing.assert_close(ld_g.float().cpu(), ld_c.float(), rtol=dtol,
+                               atol=dtol)
+
+
+@pytest.mark.parametrize("backend", ["rowgather", "dma", "dedup_gather"])
+def test_knnlm_on_card_equals_cpu(cuda_device, backend, tmp_path):
+    """A datastore built on the card (through rowgather), saved and loaded
+    on the CPU: ``knnlm_logits`` through each kernel backend on the card
+    equals the CPU's on the same hidden states and logits, ids exactly and
+    log-probs to 1e-4 + 2e-5 · max(dist) / τ (a 1e-5 relative distance
+    error's share of the exponent, either side)."""
+    from repro_torch.data.tokens import TokenStream, _batch_at
+    from repro_torch.serve import knnlm as tk
+
+    cfg, cpu, card = _lm("qwen2.5-3b", "bfloat16")
+    stream = TokenStream(cfg.vocab_size, 40, 4, 5, 0, 1)
+    corpus = [_batch_at(stream, s)["tokens"] for s in range(4)]
+    _cuda.reset_launches()
+    ds_g = tk.build_datastore(card, card, corpus, cfg.vocab_size, degree=8,
+                              build_batch=256, build_backend="rowgather")
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["l2dist_rowgather"] > 0
+    ds_c = tk.KNNLMDatastore(
+        AnnIndex.load(ds_g.index.save(str(tmp_path / "ds.npz")),
+                      device="cpu"), ds_g.values.cpu(), cfg.vocab_size)
+    q = torch.from_numpy(_batch_at(stream, 9)["tokens"])
+    hidden = tk._final_hidden(card, card, q.cuda())[:, -1]
+    lm = card.forward(card, q.cuda())[0][:, -1]
+    p = SearchParams(k=8, queue_len=32, m_max=4, num_walkers=4,
+                     backend=backend)
+    _cuda.reset_launches()
+    got, ids = tk.knnlm_logits(ds_g, hidden, lm, p)
+    torch.cuda.synchronize()
+    kernel = {"rowgather": "l2dist_rowgather", "dma": "l2dist_dma",
+              "dedup_gather": "dedupdist"}[backend]
+    assert _cuda.LAUNCHES[kernel] > 0
+    assert sum(_cuda.LAUNCHES.values()) == _cuda.LAUNCHES[kernel]
+    want, ids_c = tk.knnlm_logits(ds_c, hidden.cpu(), lm.cpu(), p)
+    assert torch.equal(ids.cpu(), ids_c)
+    dmax = float(ds_c.index.search(hidden.cpu().float(), p).dists.max())
+    tol = 1e-4 + 2e-5 * dmax / 10.0
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
