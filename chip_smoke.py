@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the port's Speed-ANN search, serving and build paths, and its LM
-with kNN-LM retrieval, on one GPU.
+with kNN-LM retrieval and training, on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--profile-src DIR]
 
@@ -157,7 +157,26 @@ Phases, one JSON line each:
                8 equal to the CPU's on the saved datastore; every (B, C)
                its gathers took held in phase 3; the call's parts (p50 of
                5) and one profiled call.  The kernels line's rows gain
-               ``launches_knnlm``.
+               ``launches_knnlm``;
+ 16. train   — qwen2.5-3b trained on the card (random weights from
+               --seed; after phase 15 has freed its model): at full width
+               and 2 layers (f32, 2 × 64 tokens) the loss, the global
+               gradient norm and every gradient leaf against the CPU's
+               (1e-4), and AdamW fed the CPU's gradients against the CPU's
+               update (1e-6); at full width and depth (f32 storage, bf16
+               compute, AdamW f32 moments, remat) one warm and 3 timed
+               make_train_step steps of 4 × 512 tokens (step ms beside its
+               bound, tokens/s, peak memory, losses and gradient norms; the
+               first loss within 0.5 of ln V), one profiled step (device
+               idle share, launches), none of the six kernels launched, and
+               a microbatches = 2 step whose loss is within 1e-3 of the
+               unsplit loss; at full width and 2 layers the Trainer's 6
+               steps of 4 × 128 tokens run clean and with a failure before
+               step 4 (checkpoints every 3 steps, keep 1): the final
+               parameters equal (bit for bit, else within 1e-5), the
+               checkpoints' bytes and save and restore seconds; one 4-lane
+               int8 compressed step within the exact step's bounds.  The
+               kernels line's rows gain ``launches_train`` (0).
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -241,6 +260,16 @@ KNNLM_CPU_QUERIES = 8         # prompts held to the CPU's knnlm_logits
 KNNLM_WALKERS = 8
 KNNLM_LAM, KNNLM_TAU = 0.25, 10.0
 KNNLM_REPS = 5                # timed kNN-LM calls (p50)
+# phase 16 (train): qwen2.5-3b trained on the card.  At full depth: one
+# warm step, then TRAIN_STEPS timed steps of TRAIN_BATCH rows × TRAIN_SEQ
+# tokens (TokenStream rows of TRAIN_SEQ + 1); at 2 layers: the Trainer's
+# clean and recovered runs of TRAIN_RUN_STEPS steps of 4 × 128 tokens, a
+# checkpoint every TRAIN_CKPT_EVERY steps, a failure before step
+# TRAIN_FAIL_AT.
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
+TRAIN_RUN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 4
+BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 peak
 
 
 def knnlm_gather_shapes(n_keys: int, build_batch: int = BUILD_BATCH,
@@ -1033,12 +1062,13 @@ def profile_batch(index, queries, params, smi, backend: str = "rowgather"):
             **profile_call(lambda: fn(queries[:64]), backend), "card": smi}
 
 
-def profile_call(run, backend: str):
-    """``run()`` (one batch through ``backend``): its wall time (median of
-    3 plain runs), then one run under torch.profiler for the summed kernel
-    time, the device's idle share against the plain wall time, the kernel
-    launches, the distance kernel's calls and mean time, and the ops that
-    take the most device time."""
+def profile_call(run, backend):
+    """``run()`` (one batch through ``backend``; None for a run with no
+    distance kernel): its wall time (median of 3 plain runs), then one run
+    under torch.profiler for the summed kernel time, the device's idle
+    share against the plain wall time, the kernel launches, the distance
+    kernel's calls and mean time, and the ops that take the most device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1070,7 +1100,8 @@ def profile_call(run, backend: str):
                   if e.device_type == DeviceType.CPU and dev_us(e) > 0),
                  key=dev_us, reverse=True)
     measured = busy_ms > 0
-    dist = [e for e in kernels if TRACE_KERNEL[backend] in e.key]
+    dist = [e for e in kernels
+            if backend is not None and TRACE_KERNEL[backend] in e.key]
     dist_ms = sum(dev_us(e) for e in dist) / 1e3
     dist_n = sum(e.count for e in dist)
     return {"wall_ms": wall, "wall_ms_profiled": wall_profiled,
@@ -1467,7 +1498,9 @@ SHARD_BACKENDS = ("rowgather", "dma", "dedup_gather")
 SHARD_REPS = 5                      # timed batches of 64 per mesh
 SHARD_CPU_QUERIES = 8               # queries held to the CPU run
 N_SHARDS = 4                        # corpus shards, one per model position
-N_CORPUS = N                        # vectors the corpus path partitions
+# vectors the corpus path partitions: half the index since phase 16 (the
+# whole smoke must end within 1200 s; the 1M partitioned build took 115 s)
+N_CORPUS = N // 2
 # the corpus engine's best-first walker (M = 1) takes a step per expanded
 # vertex: the step budget of the reference's own multi-device check
 CORPUS_MAX_STEPS = 384
@@ -2055,7 +2088,8 @@ def lm_engine(model, params, seed: int):
         picked = [logits[:, 0].float()]
         for t in range(steps):
             (logits, state), ms = _synced_ms(model.decode_step, params,
-                                             state, gen[:, t:t + 1])
+                                             state, gen[:, t:t + 1],
+                                             inplace=True)
             step_ms.append(ms)
             if t + 1 < steps:
                 picked.append(logits[:, 0].float())
@@ -2331,7 +2365,7 @@ def knnlm_phase(seed: int, smi, n_batches: int = KNNLM_BATCHES):
 
     def decode():
         with torch.inference_mode():
-            st[0] = model.decode_step(params, st[0], tok)[1]
+            st[0] = model.decode_step(params, st[0], tok, inplace=True)[1]
     out["engine"]["profile_decode_step"] = profile_call(decode, "rowgather")
     del state, st
     torch.cuda.empty_cache()
@@ -2352,6 +2386,411 @@ def knnlm_phase(seed: int, smi, n_batches: int = KNNLM_BATCHES):
     out["seconds"] = time.perf_counter() - t_phase
     del model, params, ds, hidden, lm, qs
     torch.cuda.empty_cache()
+    return out, path_launches
+
+
+def _leaf_items(tree):
+    from repro_torch.treepath import flatten_with_path, keystr_simple
+    return [(keystr_simple(p), x) for p, x in flatten_with_path(tree)]
+
+
+def _stream_batch(cfg, rows: int, seq: int, seed: int, step: int, device):
+    from repro_torch.data.tokens import TokenStream, _batch_at
+    import torch
+    batch = _batch_at(TokenStream(cfg.vocab_size, seq + 1, rows, seed, 0, 1),
+                      step)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_card_vs_cpu(cfg, seed: int):
+    """Phase 16 (1): qwen2.5-3b at full width, 2 layers, f32, one batch of
+    2 × 64 tokens: the card's loss and global gradient norm within 1e-4
+    relative of the CPU's and every gradient leaf within 1e-4 of its
+    largest magnitude; AdamW fed the CPU's gradients gives the CPU's
+    update and moments on the card (1e-6 relative, of each leaf's
+    largest)."""
+    import dataclasses
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_update, global_norm
+    from repro_torch.train.train_step import (_zeros, init_train_state,
+                                              loss_and_grad)
+    from repro_torch.treepath import tree_map
+
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=3e-3)
+    m_cpu = build_model(small, device="cpu")
+    state = init_train_state(m_cpu, torch.Generator().manual_seed(seed),
+                             tcfg)
+    card = tree_map(lambda t: t.cuda(), state)
+    batch = _stream_batch(small, 2, 64, seed + 11, 0, "cpu")
+    g_cpu, g_card = _zeros(state.params), _zeros(card.params)
+    loss_cpu = float(loss_and_grad(m_cpu, state.params, batch, True, g_cpu))
+    loss_card = float(loss_and_grad(build_model(small), card.params,
+                                    {k: v.cuda() for k, v in batch.items()},
+                                    True, g_card))
+    n_cpu, n_card = float(global_norm(g_cpu)), float(global_norm(g_card))
+    rel = {"loss": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "grad_norm": abs(n_card - n_cpu) / n_cpu}
+    worst = max((float((a.cpu() - b).abs().max() / b.abs().max()), k)
+                for (k, a), (_, b) in zip(_leaf_items(g_card),
+                                          _leaf_items(g_cpu)))
+    if max(rel.values()) > 1e-4 or worst[0] > 1e-4:
+        raise AssertionError(f"train card vs CPU: {rel}, gradient {worst}")
+    want = adamw_update(g_cpu, state.opt, state.params, tcfg)
+    got = adamw_update(tree_map(lambda t: t.cuda(), g_cpu), card.opt,
+                       card.params, tcfg)
+    upd = max((float((a.cpu() - b).abs().max() / b.abs().max()), k)
+              for (k, a), (_, b) in zip(_leaf_items(got), _leaf_items(want))
+              if b.abs().max() > 0)
+    if upd[0] > 1e-6:
+        raise AssertionError(f"adamw on the card vs the CPU: {upd}")
+    del state, card, g_cpu, g_card, want, got
+    torch.cuda.empty_cache()
+    return {"layers": 2, "tokens": 2 * 64, "loss": loss_card,
+            "rel_err": rel, "max_grad_err_rel_to_leaf_max": worst[0],
+            "max_adamw_err_rel_to_leaf_max": upd[0],
+            "tolerance": {"loss_grads": 1e-4, "adamw": 1e-6}}
+
+
+def train_bound(cfg, params, tokens: int, rows: int, seq: int):
+    """The least time one step could take: its operations over the bf16
+    peak (layers 8·N·T with remat: forward, recompute, two backward
+    products; the tied head 6·d·V·T; causal attention's two products,
+    4 passes, half of S²) against its bytes over HBM's rate (AdamW reads
+    params, gradients and both moments and writes params and moments:
+    7 × the f32 parameter bytes)."""
+    from repro_torch.treepath import tree_leaves
+    n_layers = sum(t.numel() for t in tree_leaves(params["layers"]))
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    attn = (8 * cfg.num_layers * rows * cfg.num_heads
+            * cfg.resolved_head_dim * seq * seq)
+    flops = 8 * n_layers * tokens + 6 * cfg.d_model * cfg.vocab_size \
+        * tokens + attn
+    nbytes = 7 * p_bytes
+    ms = {"operations": flops / BF16_FLOP_PER_S * 1e3,
+          "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    by = max(ms, key=ms.get)
+    return {"bound_ms": ms[by], "bound_by": by, "flops": flops,
+            "bytes": nbytes, "operations_ms": ms["operations"],
+            "bytes_ms": ms["bytes"]}
+
+
+def train_full(cfg, seed: int):
+    """Phase 16 (2): qwen2.5-3b at full width and depth (f32 storage, bf16
+    compute, AdamW f32 moments, remat "full") through make_train_step: one
+    warm step, TRAIN_STEPS timed steps (their launches counted: none of the
+    six kernels), one profiled, one with microbatches = 2 whose loss is
+    held within 1e-3, and its gradient norm within 1e-2 relative, of the
+    unsplit batch's at the same parameters (one unsplit forward and
+    backward, which the unsplit step would report)."""
+    import dataclasses
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import (_zeros, init_train_state,
+                                              loss_and_grad)
+
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(total_steps=100, warmup_steps=2, learning_rate=3e-4)
+    model = build_model(cfg)
+    (state, init_ms) = _synced_ms(
+        init_train_state, model,
+        torch.Generator(device="cuda").manual_seed(seed), tcfg)
+    step = make_train_step(model, tcfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def batch(i):
+        return _stream_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 13, i,
+                             "cuda")
+    st = [state]
+    del state
+    metrics = []
+
+    def run(i):
+        st[0], m = step(st[0], batch(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+
+    _, warm_ms = _synced_ms(run, 0)
+    step_ms = []
+
+    def timed():
+        for i in range(1, 1 + TRAIN_STEPS):
+            step_ms.append(_synced_ms(run, i)[1])
+    _, launches = counted(timed)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    first = losses[0]
+    ln_v = float(np.log(cfg.vocab_size))
+    if not all(np.isfinite(losses)) or abs(first - ln_v) > 0.5:
+        raise AssertionError(f"train losses {losses}, ln V = {ln_v}")
+    nxt = [1 + TRAIN_STEPS]
+
+    def one_step():
+        run(nxt[0])
+        nxt[0] += 1
+    prof = profile_call(one_step, None)
+    mb = batch(nxt[0])
+    grads = _zeros(st[0].params)
+    unsplit = float(loss_and_grad(model, st[0].params, mb, True, grads))
+    unsplit_norm = float(global_norm(grads))
+    del grads
+    mb_step = make_train_step(model, dataclasses.replace(tcfg,
+                                                         microbatches=2))
+    st[0], m_mb = mb_step(st[0], mb)
+    norm_rel = abs(float(m_mb["grad_norm"]) - unsplit_norm) / unsplit_norm
+    if abs(float(m_mb["loss"]) - unsplit) > 1e-3 or norm_rel > 1e-2:
+        raise AssertionError(f"microbatches=2 loss {float(m_mb['loss'])}, "
+                             f"unsplit {unsplit}; gradient norm "
+                             f"{float(m_mb['grad_norm'])}, unsplit "
+                             f"{unsplit_norm}")
+    p50 = float(np.median(step_ms))
+    out = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+           "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+           "optimizer": tcfg.optimizer, "moment_dtype": tcfg.moment_dtype,
+           "remat": tcfg.remat, "rows": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "params": sum(t.numel() for _, t in _leaf_items(st[0].params)),
+           "init_ms": init_ms, "warm_step_ms": warm_ms, "step_ms": step_ms,
+           "step_p50_ms": p50, "tokens_per_s": tokens / (p50 / 1e3),
+           "peak_bytes": peak, "losses": losses,
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "ln_vocab": ln_v, "launches": launches, "profile_step": prof,
+           "microbatches_2": {"loss": float(m_mb["loss"]),
+                              "unsplit_loss": unsplit,
+                              "grad_norm": float(m_mb["grad_norm"]),
+                              "unsplit_grad_norm": unsplit_norm,
+                              "grad_norm_rel_err": norm_rel,
+                              "tolerance": {"loss": 1e-3,
+                                            "grad_norm_rel": 1e-2}},
+           **train_bound(cfg, st[0].params, tokens, TRAIN_BATCH,
+                         TRAIN_SEQ)}
+    del st, model, step, mb_step, mb
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def train_recovery(cfg, seed: int):
+    """Phase 16 (3): the Trainer at full width and 2 layers (bf16 compute,
+    AdamW f32), TRAIN_RUN_STEPS steps of 4 × 128 tokens, a checkpoint
+    every TRAIN_CKPT_EVERY steps (keep 1), run clean and then with a
+    failure before step TRAIN_FAIL_AT: the final parameters equal, bit for
+    bit (else within 1e-5, recorded); the checkpoints' bytes, their
+    background saves' seconds and the recovery's restore seconds."""
+    import dataclasses
+    import shutil
+    import torch
+    import repro_torch.checkpoint.ckpt as ckpt_mod
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.train import Trainer
+    from repro_torch.treepath import tree_leaves
+
+    small = dataclasses.replace(cfg, num_layers=2)
+    model = build_model(small)
+    stream = TokenStream(small.vocab_size, 129, 4, seed + 17, 0, 1)
+    out = {"layers": 2, "steps": TRAIN_RUN_STEPS, "rows": 4, "seq": 128,
+           "checkpoint_every": TRAIN_CKPT_EVERY, "fail_at": TRAIN_FAIL_AT}
+    save, saves, restores = ckpt_mod.save_checkpoint, [], []
+
+    def timed_save(*a, **kw):        # the manager's background thread
+        t0 = time.perf_counter()
+        path = save(*a, **kw)
+        saves.append(time.perf_counter() - t0)
+        return path
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(total_steps=TRAIN_RUN_STEPS, warmup_steps=2,
+                           learning_rate=3e-4, seed=seed,
+                           checkpoint_every=TRAIN_CKPT_EVERY,
+                           keep_checkpoints=1, checkpoint_dir=tmp)
+        ckpt_mod.save_checkpoint = timed_save
+        try:
+            (clean, clean_ms) = _synced_ms(Trainer(model, tcfg, stream).run)
+            shutil.rmtree(tmp)
+            inj = FailureInjector([TRAIN_FAIL_AT])
+            tr = Trainer(model, tcfg, stream)
+            restore = tr.ckpt.restore_latest
+
+            def timed_restore(like):
+                got, ms = _synced_ms(restore, like)
+                restores.append(ms / 1e3)
+                return got
+            tr.ckpt.restore_latest = timed_restore
+            (faulty, faulty_ms) = _synced_ms(tr.run, fault_hook=inj)
+        finally:
+            ckpt_mod.save_checkpoint = save
+        nbytes = os.path.getsize(os.path.join(
+            tmp, f"step_{TRAIN_RUN_STEPS:08d}", "arrays.npz"))
+    if inj.fired != {TRAIN_FAIL_AT} or int(faulty.opt["step"]) \
+            != TRAIN_RUN_STEPS:
+        raise AssertionError(f"recovery: fired {inj.fired}, step "
+                             f"{int(faulty.opt['step'])}")
+    pairs = list(zip(tree_leaves(clean.params), tree_leaves(faulty.params)))
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    if diff > 1e-5:
+        raise AssertionError(f"recovered params {diff} from clean")
+    out.update(clean_run_ms=clean_ms, recovered_run_ms=faulty_ms,
+               recovered_equals_clean_bitwise=equal,
+               recovered_max_abs_diff=diff, checkpoint_bytes=nbytes,
+               save_s=saves, restore_s=restores)
+    del clean, faulty, tr, pairs, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_close(got: dict, want: dict, rel: float, what: str) -> float:
+    """The largest |got - want| over all leaves relative to each leaf's
+    largest |want|; raises above ``rel``."""
+    worst = max((float((got[k] - want[k]).abs().max()
+                       / want[k].abs().max().clamp(min=1e-30)), k)
+                for k in want)
+    if worst[0] > rel:
+        raise AssertionError(f"{what}: {worst} above {rel}")
+    return worst[0]
+
+
+def train_first_moments(cfg, seed: int):
+    """Phase 16 (4): qwen2.5-3b at full width, 2 layers, f32, one batch of
+    8 × 64 tokens, three first steps from one state (AdamW, int8
+    residuals): unsplit, microbatches = 2, and the compressed step on a
+    4-lane ``data`` axis.  A first step's moment is m = (1 - b1)·c·g (c
+    the clip scale), linear in the gradient, so g is read back from it.
+    Microbatched: its m within 1e-5 of the unsplit step's (relative to each
+    leaf's largest).  Compressed: tests/elastic_compress_check.py's bounds
+    (loss 1e-3, params 5e-3, residuals non-zero); its g within half an int8
+    step (the leaf's largest lane gradient / 127) of the exact g entry by
+    entry, and equal to it within 1e-5 once the lanes' mean residual is
+    added back; each lane's residual within half a step of its own
+    gradient (taken here, lane by lane) and a whole number of steps away
+    from it."""
+    import dataclasses
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import (_zeros, init_train_state,
+                                              loss_and_grad,
+                                              make_compressed_dp_train_step)
+    from repro_torch.treepath import tree_leaves, tree_map
+
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    model = build_model(small)
+    tcfg = TrainConfig(grad_compression="int8", learning_rate=1e-3,
+                       warmup_steps=1, total_steps=10)
+    state = init_train_state(model, torch.Generator(
+        device="cuda").manual_seed(seed), tcfg)
+    batch = _stream_batch(small, 8, 64, seed + 19, 0, "cuda")
+
+    def first(step, **kw):
+        new, m = step(tree_map(torch.clone, state), batch)
+        c = min(1.0, tcfg.grad_clip / max(float(m["grad_norm"]), 1e-6))
+        g = {k: v / ((1 - tcfg.beta1) * c)
+             for k, v in _leaf_items(new.opt["m"])}
+        return new, {k: float(v) for k, v in m.items()}, g
+
+    se, me, g_e = first(make_train_step(model, tcfg))
+    p_exact = dict(_leaf_items(se.params))
+    del se
+    out = {"layers": 2, "rows": 8, "seq": 64}
+    s2, m2, g_2 = first(make_train_step(
+        model, dataclasses.replace(tcfg, microbatches=2)))
+    out["microbatches_2"] = {
+        "loss_diff": abs(m2["loss"] - me["loss"]),
+        "max_m_err_rel_to_leaf_max": _check_close(
+            dict(_leaf_items(s2.opt["m"])),
+            {k: v * (1 - tcfg.beta1) * min(1.0, tcfg.grad_clip
+                                           / me["grad_norm"])
+             for k, v in g_e.items()}, 1e-5, "microbatches=2 first moment"),
+        "tolerance": {"loss": 1e-3, "m": 1e-5}}
+    if out["microbatches_2"]["loss_diff"] > 1e-3:
+        raise AssertionError(f"microbatches=2 loss {m2['loss']}, unsplit "
+                             f"{me['loss']}")
+    del s2, g_2
+    sc, mc, g_c = first(make_compressed_dp_train_step(
+        model, tcfg, make_host_mesh(4, 1)))
+    loss_diff = abs(mc["loss"] - me["loss"])
+    p_diff = max(float((a - p_exact[k]).abs().max())
+                 for k, a in _leaf_items(sc.params))
+    resid = sum(float(e.abs().sum()) for e in tree_leaves(sc.err))
+    if loss_diff >= 1e-3 or p_diff >= 5e-3 or not resid > 0:
+        raise AssertionError(f"compressed step: loss {loss_diff}, params "
+                             f"{p_diff}, residual {resid}")
+    err = dict(_leaf_items(sc.err))
+    lanes = []
+    for i in range(4):
+        g = _zeros(state.params)
+        loss_and_grad(model, state.params,
+                      {k: v[2 * i:2 * i + 2] for k, v in batch.items()},
+                      True, g)
+        lanes.append(dict(_leaf_items(g)))
+    worst = {"payload_err_in_half_steps": 0.0, "lane_off_whole_steps": 0.0,
+             "lane_residual_in_half_steps": 0.0}
+    for k in g_e:
+        step = max(float(lane[k].abs().max()) for lane in lanes) / 127
+        if step == 0:
+            continue
+        tol = 1e-5 * float(g_e[k].abs().max())
+        worst["payload_err_in_half_steps"] = max(
+            worst["payload_err_in_half_steps"],
+            float((g_c[k] - g_e[k]).abs().max() - tol) / (step / 2))
+        for i, lane in enumerate(lanes):
+            q = (lane[k] - err[k][i]) / step
+            worst["lane_off_whole_steps"] = max(
+                worst["lane_off_whole_steps"],
+                float((q - q.round()).abs().max()))
+            worst["lane_residual_in_half_steps"] = max(
+                worst["lane_residual_in_half_steps"],
+                float(err[k][i].abs().max()) / (step / 2))
+    # g / step and q·step round at |g| <= 127 steps: an ulp there is
+    # 1.5e-5 of a half step, so a residual may pass s/2 by a few of them
+    lim = {"payload_err_in_half_steps": 1 + 1e-4,
+           "lane_off_whole_steps": 1e-3,
+           "lane_residual_in_half_steps": 1 + 1e-4}
+    if any(worst[k] > lim[k] for k in lim):
+        raise AssertionError(f"compressed step: {worst} against {lim}")
+    with_err = _check_close(
+        {k: g_c[k] + err[k].mean(dim=0) for k in g_c}, g_e, 1e-5,
+        "compressed gradient + mean residual")
+    out["compressed_4_lanes"] = {
+        "loss_diff": loss_diff, "max_param_diff": p_diff,
+        "residual_abs_sum": resid, **worst,
+        "max_g_plus_residual_err_rel_to_leaf_max": with_err,
+        "bounds": {"loss": 1e-3, "params": 5e-3, **lim,
+                   "g_plus_residual": 1e-5}}
+    del state, sc, lanes, err, g_c, g_e, p_exact, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(seed: int, smi):
+    """Phase 16: training qwen2.5-3b on the card.  Returns (the phase's
+    line, its path launches)."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    out = {"phase": "train", "arch": cfg.name, "card": smi}
+    t0 = time.perf_counter()
+    out["card_vs_cpu_2_layers"] = train_card_vs_cpu(cfg, seed)
+    out["card_vs_cpu_2_layers"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["full"], launches = train_full(cfg, seed)
+    out["full"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["trainer_2_layers"] = train_recovery(cfg, seed)
+    out["trainer_2_layers"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["first_moments_2_layers"] = train_first_moments(cfg, seed)
+    out["first_moments_2_layers"]["seconds"] = time.perf_counter() - t0
+    path_launches = {"train/ref": launches}
+    check_launches(path_launches)
+    out["seconds"] = time.perf_counter() - t_phase
     return out, path_launches
 
 
@@ -2566,6 +3005,11 @@ def main() -> int:
         n = sum(c[row["name"]] for c in knn_launches.values())
         if n:
             row["launches_knnlm"] = n
+    trained, train_launches = train_phase(args.seed, smi)
+    emit(trained)
+    for row in rows:
+        # the training path launches none of the six kernels
+        row["launches_train"] = train_launches["train/ref"][row["name"]]
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

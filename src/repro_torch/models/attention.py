@@ -114,7 +114,9 @@ def attend(
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Attention block.  Decode writes this step's k/v into ``cache`` at
     ``pos`` IN PLACE (the reference rewrites the whole cache through a
-    where-mask; the values are the same) and returns the same tensors."""
+    where-mask; the values are the same) and returns the same tensors.  A
+    position at or past the cache's end writes nothing, as the reference's
+    where-mask selects no slot there; it still attends over every slot."""
     b, s, _ = x.shape
     dev = x.device
 
@@ -156,8 +158,13 @@ def attend(
             raise ValueError("decode needs a cache and positions")
         rows = torch.arange(b, device=dev)
         p_long = pos.long()
-        cache.k[rows, p_long] = k[:, 0].to(cache.k.dtype)
-        cache.v[rows, p_long] = v[:, 0].to(cache.v.dtype)
+        # no host sync: a position past the end rewrites the last slot
+        # with its own old value
+        slot = p_long.clamp(max=cache.k.shape[1] - 1)
+        inside = (p_long < cache.k.shape[1])[:, None, None]
+        for c, new in ((cache.k, k), (cache.v, v)):
+            c[rows, slot] = torch.where(inside, new[:, 0].to(c.dtype),
+                                        c[rows, slot])
         # attend over positions <= pos (and window if set)
         ki = torch.arange(cache.k.shape[1], device=dev)[None, None, None, :]
         mask = ki <= p_long[:, None, None, None]

@@ -42,6 +42,16 @@ def normal_init(generator: torch.Generator, shape, scale: float,
     return (x * scale).to(dtype)
 
 
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Mean masked token cross-entropy, f32 accumulation."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

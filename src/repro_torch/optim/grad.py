@@ -1,0 +1,78 @@
+"""Gradient utilities: global-norm clipping and int8 compression with error
+feedback (port of ``repro.optim.grad``).
+
+``compressed_psum`` is the reference's all-reduce over a ``data`` mesh
+axis with its positions as lanes of one device: every leaf carries a
+leading lane axis, one row per position, and the collectives become
+reductions over it.  The int8 payload, its common scale and each lane's
+residual are the reference's.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.treepath import tree_leaves, tree_map, tree_unzip
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32, leaf sums
+    added in the reference's leaf order."""
+    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def clip_by_global_norm(tree, max_norm: float, inplace: bool = False):
+    """(``tree`` scaled so its global norm is at most ``max_norm``, the
+    norm before).  ``inplace`` writes the scaled leaves into ``tree``'s
+    own tensors (a caller that owns them) and returns ``tree``."""
+    n = global_norm(tree)
+    # a tensor numerator: Python-scalar / tensor is a reciprocal product
+    scale = torch.clamp(n.new_tensor(max_norm) / torch.clamp(n, min=1e-6),
+                        max=1.0)
+
+    def one(g):
+        out = (g.float() * scale).to(g.dtype)
+        return g.copy_(out) if inplace else out
+    return tree_map(one, tree), n
+
+
+def _int8(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+
+
+def int8_compress(tree) -> Tuple:
+    """Per-leaf symmetric int8 quantization. Returns (q_tree, scales)."""
+    def scale(g):
+        return torch.clamp(g.float().abs().max(), min=1e-12) / 127.0
+    scales = tree_map(scale, tree)
+    return tree_map(lambda g, s: _int8(g.float(), s), tree, scales), scales
+
+
+def int8_decompress(q_tree, scales):
+    return tree_map(lambda q, s: q.float() * s, q_tree, scales)
+
+
+def compressed_psum(grads, error=None):
+    """int8-quantized all-reduce over lanes, with error feedback.
+
+    Every leaf of ``grads`` is (n, ...): one row per position of the
+    ``data`` axis.  ``error`` (optional) holds each lane's residual from
+    the last step, (n, ...) or broadcast from one (...) residual.  All
+    lanes share one per-leaf scale (the reference's scalar ``pmax``),
+    quantize their residual-corrected grads against it, and the int8
+    payloads are summed in int32 and dequantized.  Returns (the mean
+    grads, (...) per leaf; each lane's new residual, (n, ...))."""
+    if error is not None:
+        grads = tree_map(lambda g, e: g.float() + e, grads, error)
+    grads = tree_map(lambda g: g.float(), grads)
+
+    def one(g):
+        n = g.shape[0]
+        per_lane = torch.clamp(g.abs().reshape(n, -1).amax(dim=1), min=1e-12)
+        scale = per_lane.max() / 127.0
+        q = _int8(g, scale)
+        mean = q.to(torch.int32).sum(dim=0).float() * scale / n
+        return mean, g - q.float() * scale
+    return tree_unzip(one, 2, grads)

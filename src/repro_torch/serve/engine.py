@@ -50,7 +50,7 @@ class ServeEngine:
                 probs = torch.softmax(lg.float() / temperature, dim=-1)
                 nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
             logits, state = self.model.decode_step(self.params, state,
-                                                   nxt[:, None])
+                                                   nxt[:, None], inplace=True)
             out.append(nxt.to(torch.int32))
         if not out:
             return tokens.new_zeros((tokens.shape[0], 0),

@@ -962,3 +962,79 @@ def test_knnlm_on_card_equals_cpu(cuda_device, backend, tmp_path):
     dmax = float(ds_c.index.search(hidden.cpu().float(), p).dists.max())
     tol = 1e-4 + 2e-5 * dmax / 10.0
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol)
+
+
+# -- the LM's decode past the cache and its training on the card -----------
+
+def test_decode_past_s_max_on_card_equals_cpu(cuda_device):
+    """Positions past a 10-slot cache write nothing (no device-side
+    assert): the card's greedy tokens equal the CPU's."""
+    from repro_torch.serve import ServeEngine
+    _, cpu, card = _lm("qwen2.5-3b", "float32")
+    prompt = np.random.RandomState(1).randint(0, 128, size=(3, 8))
+    want, _ = ServeEngine(cpu, cpu, s_max=10).generate(prompt, steps=5)
+    got, _ = ServeEngine(card, card, s_max=10).generate(prompt, steps=5)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def _train_case(device):
+    import dataclasses
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenStream, _batch_at
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import init_train_state
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), dtype="float32")
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=3e-3)
+    model = build_model(cfg, device="cpu")
+    state = init_train_state(model, torch.Generator().manual_seed(0), tcfg)
+    batch = _batch_at(TokenStream(cfg.vocab_size, 17, 4, 0, 0, 1), 0)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    return build_model(cfg, device=device), tcfg, state, batch
+
+
+def test_train_step_on_card_equals_cpu(cuda_device):
+    """The gradients and loss of a smoke step on the card equal the CPU's
+    (f32, 1e-5 of each leaf's largest); AdamW fed the CPU's gradients gives
+    the CPU's update (1e-6); a whole step's metrics agree (1e-5)."""
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import _zeros, loss_and_grad
+    from repro_torch.treepath import flatten_with_path, tree_map
+    model_c, tcfg, state, batch = _train_case("cpu")
+    model_g, _, _, _ = _train_case("cuda")
+    on_card = tree_map(lambda t: t.cuda(), state)
+    batch_g = {k: v.cuda() for k, v in batch.items()}
+    g_c, g_g = _zeros(state.params), _zeros(on_card.params)
+    loss_c = loss_and_grad(model_c, state.params, batch, True, g_c)
+    loss_g = loss_and_grad(model_g, on_card.params, batch_g, True, g_g)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for (p, a), (_, b) in zip(flatten_with_path(g_g), flatten_with_path(g_c)):
+        tol = 1e-5 * float(b.abs().max())
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=tol, msg=str(p))
+    u_c, o_c = adamw_update(g_c, state.opt, state.params, tcfg)
+    u_g, o_g = adamw_update(tree_map(lambda t: t.cuda(), g_c), on_card.opt,
+                            on_card.params, tcfg)
+    for (p, a), (_, b) in zip(flatten_with_path((u_g, o_g)),
+                              flatten_with_path((u_c, o_c))):
+        tol = 1e-6 * float(b.abs().max().float())
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=tol,
+                                   msg=str(p))
+    _, m_c = make_train_step(model_c, tcfg)(state, batch)
+    _, m_g = make_train_step(model_g, tcfg)(on_card, batch_g)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_g[k]) - float(m_c[k])) <= 1e-5 * abs(float(m_c[k]))
+
+
+def test_checkpoint_written_on_card_loads_on_cpu(cuda_device, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.treepath import flatten_with_path, tree_map
+    _, _, state, _ = _train_case("cpu")
+    on_card = tree_map(lambda t: (t * 1.5 if t.is_floating_point() else t + 1)
+                       .cuda(), state)
+    save_checkpoint(str(tmp_path), 2, on_card)
+    back = load_checkpoint(str(tmp_path), 2, state)
+    for (p, a), (_, b) in zip(flatten_with_path(back),
+                              flatten_with_path(on_card)):
+        assert a.device.type == "cpu" and torch.equal(a, b.cpu()), p

@@ -7,8 +7,10 @@ against the reference, on the CPU.
   reference's arrays for the same seed.
 * ``build_model`` raises ``NotImplementedError`` for the families that are
   not ported.
-* ``ServeEngine.generate``: greedy tokens equal the JAX engine's in f32;
-  a sampled run repeats under one seed.
+* ``ServeEngine.generate``: greedy tokens equal the JAX engine's in f32,
+  also past the end of the cache; a sampled run repeats under one seed.
+* ``decode_step`` is pure as the reference's: branches from one state
+  give the reference's logits.
 * ``python -m repro_torch.launch.serve --mode lm --smoke --device cpu``
   runs.
 """
@@ -168,6 +170,49 @@ def test_greedy_tokens_equal_jax_engine(arch):
     np.testing.assert_allclose(last_t.float().numpy(),
                                np.asarray(last_j, np.float32), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_decode_past_s_max_equals_reference():
+    """Positions 10 and 11 fall past a 10-slot cache: the reference drops
+    those writes and attends over all 10 slots; so does the port."""
+    eng_j, eng_t = _engines("qwen2.5-3b", s_max=10)
+    prompt = np.random.RandomState(1).randint(0, 128, size=(3, 8))
+    toks_j, last_j = eng_j.generate(jnp.asarray(prompt), steps=5)
+    toks_t, last_t = eng_t.generate(prompt, steps=5)
+    want = [[7, 6, 54, 54, 54], [71, 46, 72, 54, 54], [34, 117, 8, 70, 104]]
+    np.testing.assert_array_equal(np.asarray(toks_j), want)
+    np.testing.assert_array_equal(toks_t.numpy(), want)
+    np.testing.assert_allclose(last_t.float().numpy(),
+                               np.asarray(last_j, np.float32), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_decode_branches_from_one_state_equal_reference():
+    """``decode_step`` leaves its input state as it was: two branches from
+    one prefill, and a step after the first branch, give the reference's
+    logits; ``inplace=True`` writes into the state it is given."""
+    eng_j, eng_t = _engines("qwen2.5-3b", s_max=16)
+    prompt = np.random.RandomState(1).randint(0, 128, size=(3, 8))
+    mj, pj, mt, pt = eng_j.model, eng_j.params, eng_t.model, eng_t.params
+    _, st_j = mj.prefill(pj, jnp.asarray(prompt), 16)
+    _, st_t = mt.prefill(pt, torch.from_numpy(prompt), 16)
+    before = st_t.caches.k.clone()
+    got, want = [], []
+    for model, params, st, tok, out in (
+            (mj, pj, st_j, jnp.asarray, want),
+            (mt, pt, st_t, torch.tensor, got)):
+        la, sa = model.decode_step(params, st, tok([[5], [6], [7]]))
+        lb, _ = model.decode_step(params, st, tok([[9], [10], [11]]))
+        lc, _ = model.decode_step(params, sa, tok([[1], [2], [3]]))
+        out += [np.asarray(x, np.float32) if out is want else x.numpy()
+                for x in (la, lb, lc)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+    assert torch.equal(st_t.caches.k, before)
+    _, s2 = mt.decode_step(pt, st_t, torch.tensor([[5], [6], [7]]),
+                           inplace=True)
+    assert s2.caches.k is st_t.caches.k
+    assert not torch.equal(st_t.caches.k, before)
 
 
 def test_sampled_tokens_repeat_under_one_seed():

@@ -328,8 +328,9 @@ def test_init_draws_reference_shapes_and_scales():
     n_bias = 0
     for block, leaves in tree["layers"].items():
         for name, a in leaves.items():
-            t = got[f"layers.1.{block}.{name}"]
-            assert t.shape == tuple(a.shape[1:]), (block, name)
+            assert got[f"layers.{block}.{name}"].shape == a.shape, \
+                (block, name)
+            t = got[f"layers.{block}.{name}"][1]
             assert t.dtype == torch.float32
             # the same init scale: std within 20% of the reference's
             sa, st = float(np.std(np.asarray(a[1]))), float(t.std())
