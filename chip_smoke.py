@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the port's Speed-ANN search, serving and build paths, and its LM
-with kNN-LM retrieval and training, on one GPU.
+"""Run the port's Speed-ANN search, serving and build paths, and its LMs
+(dense with kNN-LM retrieval and training; the moe family), on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--profile-src DIR]
 
@@ -85,7 +85,7 @@ Phases, one JSON line each:
                and dedup_gather_int8 (rerank_k = 30), each equal to
                ``index.search`` and launching its own kernel only; per
                bucket p50 and max of SERVE_REPS timed requests, and p99
-               where there are 100 (buckets 1-8); ``serve_async``
+               where there are 100 (bucket 1); ``serve_async``
                (max_wait 2 ms) on its dispatcher thread fed the 264
                queries one at a time, four times over, with Poisson gaps
                from --seed at half the rate the 64-bucket sustains on real
@@ -94,8 +94,9 @@ Phases, one JSON line each:
                (latency p50/p99, queue wait, mean batch, queries/s); a
                cached server given 64 of them twice, the second 64 all
                hits and equal; a ReplicaRouter of two engines with a hedge
-               after half the single-query p50, 64 single queries from 4
-               client threads, each equal to its direct search, each
+               after half the single-query p50, ROUTER_QUERIES single
+               queries from 4 client threads, each equal to its direct
+               search, each
                resolved once, hedges counted; one request of 64 with
                tracing, metrics and the profiler bridge under
                torch.profiler: the trace passes scripts/check_trace.py
@@ -176,7 +177,25 @@ Phases, one JSON line each:
                parameters equal (bit for bit, else within 1e-5), the
                checkpoints' bytes and save and restore seconds; one 4-lane
                int8 compressed step within the exact step's bounds.  The
-               kernels line's rows gain ``launches_train`` (0).
+               kernels line's rows gain ``launches_train`` (0);
+ 17. moe     — qwen3-moe-30b-a3b (128 experts, top-8; random weights from
+               --seed; after phase 16 has freed its state): at full width
+               and 2 layers (f32, 2 × 64 tokens) forward logits (1e-4),
+               aux (1e-6), loss and every gradient leaf (1e-4 of the
+               leaf's largest) against the CPU's; moe_ffn_sharded over
+               lanes on one full-width layer and 2,048 tokens, a (2, 4)
+               mesh (the a2a path) and a (1, 3) mesh (the tp path), card
+               = CPU within 1e-5 relative and equal to moe_ffn where
+               nothing drops; at full depth (48 layers, bf16 storage)
+               ServeEngine on 8 prompts of 512 tokens, 32 greedy steps
+               (prefill and decode ms beside their bounds, tokens/s, peak
+               memory, a profiled decode step and prefill, the split of
+               one layer's moe_ffn, no kernel launched), a decode step at
+               the config's capacity factor equal bit for bit to one at
+               E/k, and the replay check at E/k in f32 compute (greedy
+               tokens = teacher-forced argmax, replayed logits = forward,
+               routing held token by token).  The kernels line's rows
+               gain ``launches_moe`` (0).
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -201,6 +220,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -270,6 +290,22 @@ TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
 TRAIN_RUN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 4
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 peak
+# phase 17 (moe): qwen3-moe-30b-a3b at full width.  (a) card vs CPU at 2
+# layers, f32, MOE_CHECK_ROWS × MOE_CHECK_SEQ tokens; (b) the lane paths on
+# one layer's experts and MOE_LANE_TOKENS tokens over MOE_LANE_MESHES; (c)
+# full depth in bf16 storage (its f32 weights, 122 GB, do not fit the
+# card): ServeEngine on MOE_PROMPTS prompts of MOE_PROMPT_LEN tokens,
+# MOE_STEPS greedy steps at the config's capacity factor, and the replay
+# check on MOE_REPLAY_LEN-token prompts, MOE_REPLAY_STEPS steps, at
+# capacity factor E/k (capacity = tokens: nothing drops); MOE_SPLIT_REPS
+# timed calls of each part of one layer's moe_ffn
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_CHECK_ROWS, MOE_CHECK_SEQ = 2, 64
+MOE_LANE_TOKENS = 2048
+MOE_LANE_MESHES = ((2, 4), (1, 3))      # a2a: 128 % 4 = 0; tp: 128 % 3 != 0
+MOE_PROMPTS, MOE_PROMPT_LEN, MOE_STEPS = 8, 512, 32
+MOE_REPLAY_LEN, MOE_REPLAY_STEPS = 64, 8
+MOE_SPLIT_REPS = 20
 
 
 def knnlm_gather_shapes(n_keys: int, build_batch: int = BUILD_BATCH,
@@ -1172,11 +1208,16 @@ def kernel_times(index, qindex, queries, smi):
 
 
 SERVE_SIZES = (1, 3, 17, 64, 100)   # engine requests; 100 is two chunks
-# timed requests per bucket: 100 where a request is quick (buckets 1-8,
-# ~0.1-0.2 s), so that its p99 is a tail; 20 above, which report p50 and
-# max only
-SERVE_REPS = {1: 100, 2: 100, 4: 100, 8: 100, 16: 20, 32: 20, 64: 20}
+# timed requests per bucket: 100 at bucket 1 (a single query, the
+# coalescer's unit), so that its p99 is a tail; 20 at 2-8 and 10 above,
+# which report p50 and max only.  (Until phase 17 came, 100 at 1-8 and 20
+# above: the timed requests took 118 s of the serve phase's 282 s on one
+# H100, buckets 2-8 70 s of them.)
+SERVE_REPS = {1: 100, 2: 20, 4: 20, 8: 20, 16: 10, 32: 10, 64: 10}
 TAIL_MIN = 100                      # fewer requests report no p99
+# single queries through the hedging router, from 4 client threads (64
+# until phase 17 came: 75 s of the serve phase, every query hedged)
+ROUTER_QUERIES = 32
 COALESCE_PASSES = 4                 # the 264 queries, offered this often
 
 
@@ -1240,6 +1281,7 @@ def serve_engine(index, qindex, queries, params, qparams):
                                 engine.warmup().items()}}
     path_launches, lo, seen, timed = {}, 0, set(), {}
     nq = queries.shape[0]
+    seconds, t0 = {}, time.perf_counter()
     for n in SERVE_SIZES:
         req = queries[lo:lo + n]
         with recording_shapes(seen):
@@ -1250,6 +1292,8 @@ def serve_engine(index, qindex, queries, params, qparams):
             raise AssertionError(f"engine request of {n} differs from "
                                  f"index.search")
         lo += n
+    seconds["requests"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     with recording_shapes(seen):
         for b in engine.bucket_sizes:
             # a window sliding over the 264 queries; results come back as
@@ -1260,6 +1304,8 @@ def serve_engine(index, qindex, queries, params, qparams):
                 t0 = time.perf_counter()
                 engine.search(queries[s:s + b])
                 timed[b].append((time.perf_counter() - t0) * 1e3)
+    seconds["timed"] = {str(b): sum(ms) / 1e3 for b, ms in timed.items()}
+    t0 = time.perf_counter()
     unchecked = seen - set(GATHER_SHAPES)
     if not seen or unchecked:
         raise AssertionError(f"rowgather shapes not held in phase 3: "
@@ -1275,6 +1321,8 @@ def serve_engine(index, qindex, queries, params, qparams):
             raise AssertionError(f"engine through {p.backend} differs from "
                                  f"index.search")
     check_launches(path_launches)
+    seconds["backends"] = time.perf_counter() - t0
+    facts["seconds"] = seconds
     facts["bucket_ms"] = {}
     for b, ms in timed.items():
         row = {"requests": len(ms), "p50": float(np.percentile(ms, 50)),
@@ -1356,15 +1404,17 @@ def serve_coalescer(index, queries_np, params, direct, bucket64_ms, seed):
 
 def serve_router(index, queries_np, params, direct, hedge_ms):
     """Phase 12 (4): two replicas behind ``ReplicaRouter`` with a hedge
-    after ``hedge_ms``; 64 single queries from 4 client threads, each equal
-    to its direct search and resolved once, hedges counted."""
+    after ``hedge_ms``; ROUTER_QUERIES single queries from 4 client
+    threads, each equal to its direct search and resolved once, hedges
+    counted."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.serve import ReplicaRouter, RouterPolicy
     router = ReplicaRouter([index.serve(params) for _ in range(2)],
                            policy=RouterPolicy(hedge_after_ms=hedge_ms))
     with ThreadPoolExecutor(max_workers=4) as pool:
         res = list(pool.map(
-            lambda i: router.search(queries_np[i:i + 1]), range(64)))
+            lambda i: router.search(queries_np[i:i + 1]),
+            range(ROUTER_QUERIES)))
     router.drain_hedges()
     st = router.stats()
     router.close()
@@ -1373,10 +1423,10 @@ def serve_router(index, queries_np, params, direct, hedge_ms):
                 and np.array_equal(r.dists[0], direct[i][1])):
             raise AssertionError(f"routed query {i} differs from its "
                                  f"direct search")
-    if st["requests"] != 64 or st["hedges"] == 0:
+    if st["requests"] != ROUTER_QUERIES or st["hedges"] == 0:
         raise AssertionError(f"router: {st}")
     lat = [r.latency_ms for r in res]
-    return {"hedge_after_ms": hedge_ms, "requests": 64,
+    return {"hedge_after_ms": hedge_ms, "requests": ROUTER_QUERIES,
             "hedges": st["hedges"], "hedge_wins": st["hedge_wins"],
             "hedge_discarded": st["hedge_discarded"],
             "replica_served": [st["replica0_served"],
@@ -1470,24 +1520,37 @@ def serve_phase(index, qindex, queries, seed, smi):
     params = smoke_params().with_(backend="rowgather")
     qparams = smoke_params().with_(rerank_k=30)
     out = {"phase": "serve", "card": smi}
-    t0 = time.perf_counter()
-    facts, path_launches, engine = serve_engine(index, qindex, queries,
-                                                params, qparams)
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        res = fn(*a)
+        parts[name] = time.perf_counter() - t0
+        return res
+    facts, path_launches, engine = part("engine", serve_engine, index,
+                                        qindex, queries, params, qparams)
     out["engine"] = facts
     searcher = index.searcher(params)
-    direct = []
-    for i in range(queries.shape[0]):
-        r = searcher(queries[i:i + 1])
-        direct.append((r.ids[0].cpu().numpy(), r.dists[0].cpu().numpy()))
+
+    def direct_searches():
+        found = []
+        for i in range(queries.shape[0]):
+            r = searcher(queries[i:i + 1])
+            found.append((r.ids[0].cpu().numpy(),
+                          r.dists[0].cpu().numpy()))
+        return found
+    direct = part("direct", direct_searches)
     queries_np = queries.cpu().numpy()
-    out["coalescer"] = serve_coalescer(
-        index, queries_np, params, direct,
-        facts["bucket_ms"]["64"]["p50"], seed)
-    out["router"] = serve_router(index, queries_np, params, direct,
-                                 0.5 * facts["single_query_p50_ms"])
-    out["obs"] = serve_obs(index, queries, params)
+    out["coalescer"] = part("coalescer", serve_coalescer, index, queries_np,
+                            params, direct, facts["bucket_ms"]["64"]["p50"],
+                            seed)
+    out["router"] = part("router", serve_router, index, queries_np, params,
+                         direct, 0.5 * facts["single_query_p50_ms"])
+    out["obs"] = part("obs", serve_obs, index, queries, params)
     out["launches"] = path_launches
-    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
     del engine
     torch.cuda.empty_cache()
     return out, path_launches
@@ -2050,29 +2113,16 @@ def lm_card_vs_cpu(cfg, seed: int):
                          "logits": beyond.numel()}}
 
 
-def lm_engine(model, params, seed: int):
-    """Phase 15 (3): ServeEngine on qwen2.5-3b: KNNLM_PROMPTS prompts of
-    KNNLM_PROMPT_LEN tokens, KNNLM_STEPS greedy steps.  The prefill and
-    decode steps are then replayed on the generated tokens, and the logits
-    that picked each token are held to the teacher-forced ``forward`` over
-    prompt + generated tokens at its position: no farther from it than the
-    farther of the two is from the float32 forward (bf16 runs of another
-    shape round in another order).  Each token is that forward's argmax
-    wherever its top-2 margin exceeds twice the replay's largest
-    |difference| in its row (there the two argmaxes must agree).  Prefill
-    ms, decode ms a step (p50), tokens/s, peak memory, and the decode step
-    beside the bytes it must move (every weight in its stored dtype, the
-    filled caches)."""
-    import dataclasses
+def engine_timings(model, params, prompts, steps: int):
+    """ServeEngine on ``prompts`` (B, plen) for ``steps`` greedy steps: a
+    warm call, then ``generate`` timed (peak memory); 3 timed prefills and
+    the generated tokens replayed one timed decode step at a time, keeping
+    the logits that picked each token.  Returns (facts, generated tokens
+    (B, steps), picked logits (B, steps, V) f32, the final state)."""
     import torch
-    from repro_torch.data.tokens import TokenStream, _batch_at
-    from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
 
-    cfg = model.cfg
-    b, plen, steps = KNNLM_PROMPTS, KNNLM_PROMPT_LEN, KNNLM_STEPS
-    prompts = torch.from_numpy(_batch_at(TokenStream(
-        cfg.vocab_size, plen + 1, b, seed + 7, 0, 1), 0)["tokens"]).cuda()
+    b, plen = prompts.shape
     s_max = plen + steps
     eng = ServeEngine(model, params, s_max=s_max)
     eng.generate(prompts[:, :16], steps=2)                    # warm
@@ -2094,6 +2144,44 @@ def lm_engine(model, params, seed: int):
             if t + 1 < steps:
                 picked.append(logits[:, 0].float())
         picked = torch.stack(picked, dim=1)                   # (B, steps, V)
+    if not torch.equal(gen.long(), picked.argmax(-1)):
+        raise AssertionError("ServeEngine: the replayed steps pick other "
+                             "tokens than generate")
+    p50 = float(np.median(step_ms))
+    return ({"prompts": b, "prompt_len": plen, "steps": steps,
+             "s_max": s_max, "generate_ms": gen_ms,
+             "generate_tokens_per_s": b * steps / (gen_ms / 1e3),
+             "prefill_ms": pre_ms,
+             "prefill_p50_ms": float(np.median(pre_ms)),
+             "decode_ms": step_ms, "decode_p50_ms": p50,
+             "decode_tokens_per_s": b / (p50 / 1e3), "peak_bytes": peak},
+            gen, picked, state)
+
+
+def lm_engine(model, params, seed: int):
+    """Phase 15 (3): ServeEngine on qwen2.5-3b: KNNLM_PROMPTS prompts of
+    KNNLM_PROMPT_LEN tokens, KNNLM_STEPS greedy steps
+    (:func:`engine_timings`).  The logits that picked each token are held
+    to the teacher-forced ``forward`` over prompt + generated tokens at its
+    position: no farther from it than the farther of the two is from the
+    float32 forward (bf16 runs of another shape round in another order).
+    Each token is that forward's argmax wherever its top-2 margin exceeds
+    twice the replay's largest |difference| in its row (there the two
+    argmaxes must agree).  Prefill ms, decode ms a step (p50), tokens/s,
+    peak memory, and the decode step beside the bytes it must move (every
+    weight in its stored dtype, the filled caches)."""
+    import dataclasses
+    import torch
+    from repro_torch.data.tokens import TokenStream, _batch_at
+    from repro_torch.models import build_model
+
+    cfg = model.cfg
+    b, plen, steps = KNNLM_PROMPTS, KNNLM_PROMPT_LEN, KNNLM_STEPS
+    prompts = torch.from_numpy(_batch_at(TokenStream(
+        cfg.vocab_size, plen + 1, b, seed + 7, 0, 1), 0)["tokens"]).cuda()
+    facts, gen, picked, state = engine_timings(model, params, prompts,
+                                               steps)
+    with torch.inference_mode():
         seq = torch.cat([prompts, gen.long()], 1)
         window = slice(plen - 1, plen - 1 + steps)
         tf = model.forward(params, seq)[0][:, window].float()
@@ -2113,22 +2201,12 @@ def lm_engine(model, params, seed: int):
         raise AssertionError(f"ServeEngine: {int((~agree & checked).sum())} "
                              f"greedy tokens differ from the teacher-forced "
                              f"argmax")
-    if not torch.equal(gen.long(), picked.argmax(-1)):
-        raise AssertionError("ServeEngine: the replayed steps pick other "
-                             "tokens than generate")
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     cache_bytes = sum(t.numel() * t.element_size() for t in state.caches)
     bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
-    p50 = float(np.median(step_ms))
-    return {"prompts": b, "prompt_len": plen, "steps": steps,
-            "s_max": s_max, "generate_ms": gen_ms,
-            "generate_tokens_per_s": b * steps / (gen_ms / 1e3),
-            "prefill_ms": pre_ms, "prefill_p50_ms": float(np.median(pre_ms)),
-            "decode_ms": step_ms, "decode_p50_ms": p50,
-            "decode_tokens_per_s": b / (p50 / 1e3),
+    return {**facts,
             "decode_bound_ms": bound_ms, "decode_bound_by": "bytes",
             "decode_bound_bytes": {"weights": w_bytes, "caches": cache_bytes},
-            "peak_bytes": peak,
             "max_abs_replay_teacher": pair, "max_abs_replay_f32": replay_err,
             "max_abs_teacher_f32": tf_err,
             "tokens_checked": int(checked.sum()),
@@ -2793,6 +2871,468 @@ def train_phase(seed: int, smi):
     out["seconds"] = time.perf_counter() - t_phase
     return out, path_launches
 
+@contextlib.contextmanager
+def routing_record(calls: list):
+    """Inside the block, every routing of ``models.moe.moe_ffn`` appends
+    (its top-k experts, sorted per token; each token's gap between its
+    k-th and (k+1)-th probability; its k-th probability) to ``calls``."""
+    import torch
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(x, router, k):
+        probs, top_p, top_e = route(x, router, k)
+        top = torch.topk(probs.detach(), k + 1, dim=-1).values
+        calls.append((top_e.sort(-1).values, top[..., k - 1] - top[..., k],
+                      top[..., k - 1]))
+        return probs, top_p, top_e
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def moe_card_vs_cpu(cfg, seed: int):
+    """Phase 17 (a): qwen3-moe-30b-a3b at full width and 2 layers, f32,
+    one batch of MOE_CHECK_ROWS × MOE_CHECK_SEQ tokens: the card's forward
+    logits within rtol = atol = 1e-4 of the CPU's and its aux loss within
+    1e-6; the loss within 1e-4 relative and every gradient leaf (the
+    router and the three expert stacks among them) within 1e-4 of its
+    largest magnitude (phase 16's bars).  The weights are drawn on the
+    card and copied to the CPU.  The smallest gap between a token's k-th
+    and (k+1)-th expert probability is recorded: a gap below the two
+    devices' rounding would route a token differently."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import _zeros, loss_and_grad
+    from repro_torch.treepath import tree_map
+
+    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    m_card, m_cpu = build_model(small), build_model(small, device="cpu")
+    card = m_card.init_tree(torch.Generator(device="cuda").manual_seed(seed))
+    cpu = tree_map(lambda t: t.cpu(), card)
+    batch = _stream_batch(small, MOE_CHECK_ROWS, MOE_CHECK_SEQ, seed + 19,
+                          0, "cpu")
+    batch_g = {k: v.cuda() for k, v in batch.items()}
+    calls = []
+    with torch.inference_mode():
+        with routing_record(calls):
+            want, aux_cpu = m_cpu.forward(cpu, batch["tokens"])
+        got, aux_card = m_card.forward(card, batch_g["tokens"])
+    gap = min(float(g.min()) for _, g, _ in calls)
+    logit_err = float((got.cpu() - want).abs().max())
+    aux_err = abs(float(aux_card) - float(aux_cpu))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4,
+                               msg=lambda m: f"moe logits, card vs CPU "
+                               f"(smallest routing gap {gap}): {m}")
+    if aux_err > 1e-6:
+        raise AssertionError(f"moe aux, card vs CPU: {aux_err}")
+    del want, got
+    g_cpu, g_card = _zeros(cpu), _zeros(card)
+    loss_cpu = float(loss_and_grad(m_cpu, cpu, batch, True, g_cpu))
+    loss_card = float(loss_and_grad(m_card, card, batch_g, True, g_card))
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = max((float((a.cpu() - b).abs().max() / b.abs().max()), k)
+                for (k, a), (_, b) in zip(_leaf_items(g_card),
+                                          _leaf_items(g_cpu)))
+    if rel > 1e-4 or worst[0] > 1e-4:
+        raise AssertionError(f"moe train card vs CPU: loss {rel}, "
+                             f"gradient {worst}")
+    moe_leaves = sorted(k for k, _ in _leaf_items(g_card)
+                        if k.startswith("layers/moe/"))
+    del card, cpu, g_cpu, g_card
+    torch.cuda.empty_cache()
+    return {"layers": 2, "tokens": MOE_CHECK_ROWS * MOE_CHECK_SEQ,
+            "max_abs_logit_err": logit_err, "aux": float(aux_card),
+            "aux_abs_err": aux_err, "loss": loss_card, "loss_rel_err": rel,
+            "max_grad_err_rel_to_leaf_max": worst[0],
+            "worst_leaf": worst[1], "moe_leaves": moe_leaves,
+            "min_routing_gap": gap,
+            "tolerance": {"logits": 1e-4, "aux": 1e-6, "loss_grads": 1e-4}}
+
+
+def moe_lanes(cfg, seed: int):
+    """Phase 17 (b): ``moe_ffn_sharded`` on one full-width layer's
+    experts (f32) and MOE_LANE_TOKENS tokens over each of MOE_LANE_MESHES:
+    (2, 4) takes the a2a path (32 experts a position), (1, 3) the tp path
+    (128 % 3 != 0; an f-slice of 768 / 3 = 256 a position).  At the
+    config's capacity factor the card equals the CPU within 1e-5 of the
+    output's largest magnitude (aux 1e-6); at capacity factor 8, where
+    nothing drops, each equals ``moe_ffn`` on the card as closely.  A
+    router of zeros routes every token to experts 0..k−1 (``lax.top_k``'s
+    tie order).  The tokens are integers in [-3, 3] and the router a
+    multiple of 2^-12, so every router logit is exact in f32 on both
+    devices and both route alike."""
+    import dataclasses
+    import torch
+    from repro_torch.core.distributed import make_search_mesh
+    from repro_torch.models import moe, moe_a2a
+    from repro_torch.sharding import DEFAULT_RULES, use_rules
+
+    one = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    eight = dataclasses.replace(one, moe=dataclasses.replace(
+        one.moe, capacity_factor=8.0))
+    p_card = moe.moe_init(torch.Generator(device="cuda").manual_seed(
+        seed + 23), one, torch.float32)
+    p_card["router"] = torch.round(p_card["router"] * 4096) / 4096
+    p_cpu = {k: v.cpu() for k, v in p_card.items()}
+    x_cpu = torch.randint(-3, 4, (1, MOE_LANE_TOKENS, cfg.d_model),
+                          generator=torch.Generator().manual_seed(seed + 29)
+                          ).float()
+    x_card = x_cpu.cuda()
+
+    def sharded(c, p, x, shape, dev):
+        with use_rules(DEFAULT_RULES, make_search_mesh(shape, device=dev)):
+            return moe_a2a.moe_ffn_sharded(p, x, c)
+    out = {"tokens": MOE_LANE_TOKENS, "tolerance_rel": 1e-5,
+           "aux_tolerance": 1e-6}
+    with torch.inference_mode():
+        # a router of zeros ties every probability: the lowest k experts
+        _, _, tie_e = moe.route(x_card[0], torch.zeros_like(
+            p_card["router"]), cfg.moe.top_k)
+        if not torch.equal(tie_e, torch.arange(
+                cfg.moe.top_k, device="cuda").expand_as(tie_e)):
+            raise AssertionError("moe: tied probabilities route to other "
+                                 "experts than 0..k-1")
+        out["ties_route_to_lowest_experts"] = True
+        y0, aux0 = moe.moe_ffn(p_card, x_card, eight)
+        for shape in MOE_LANE_MESHES:
+            path = "a2a" if cfg.moe.num_experts % shape[1] == 0 else "tp"
+            name = f"{path}_{shape[0]}x{shape[1]}"
+            want, aux_cpu = sharded(one, p_cpu, x_cpu, shape, "cpu")
+            (got, aux_card), ms = _synced_ms(sharded, one, p_card, x_card,
+                                             shape, "cuda")
+            scale = float(want.abs().max())
+            err = float((got.cpu() - want).abs().max()) / scale
+            aux_err = abs(float(aux_card) - float(aux_cpu))
+            y8, aux8 = sharded(eight, p_card, x_card, shape, "cuda")
+            err8 = float((y8 - y0).abs().max() / y0.abs().max())
+            aux8_err = abs(float(aux8) - float(aux0))
+            if max(err, err8) > 1e-5 or max(aux_err, aux8_err) > 1e-6:
+                raise AssertionError(
+                    f"moe lanes {name}: card vs CPU {err} (aux {aux_err}); "
+                    f"cf 8 vs moe_ffn {err8} (aux {aux8_err})")
+            out[name] = {"path": path, "card_ms": ms,
+                         "rel_err_card_cpu": err, "aux_err_card_cpu": aux_err,
+                         "rel_err_cf8_vs_moe_ffn": err8,
+                         "aux_err_cf8_vs_moe_ffn": aux8_err}
+    del p_card, p_cpu, x_card, y0
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_bounds(cfg, params, b: int, plen: int, state):
+    """The least time of a decode step of ``b`` tokens and of a prefill of
+    ``b`` × ``plen`` tokens.  Bytes: every weight read once, the embedding
+    table only its ``b`` rows (dense-capacity dispatch runs every expert
+    whenever each has a slot, as at decode, so every expert's weights are
+    read), and the caches.  Operations (bf16 peak): the expert products
+    over their capacity buffers (E · capacity slots, filled or not: the
+    work the reference's dispatch does), the router, the attention
+    projections, attention's two products, and the head at the last
+    position."""
+    from repro_torch.models.moe import _capacity
+
+    emb = params.embedding
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    w_bytes += (b - emb.shape[0]) * emb.shape[1] * emb.element_size()
+    cache_bytes = sum(t.numel() * t.element_size() for t in state.caches)
+    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    e, hd = cfg.moe.num_experts, cfg.resolved_head_dim
+    proj = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+
+    def flops(t: int, pairs: int):
+        """t tokens whose queries meet ``pairs`` keys a row and head."""
+        experts = L * 6 * e * _capacity(cfg, t) * d * f
+        rest = L * 2 * t * (d * e + proj) + 2 * b * d * cfg.vocab_size
+        attn = L * 4 * b * cfg.num_heads * hd * pairs
+        return experts, experts + rest + attn
+
+    s_max = state.caches.k.shape[2]
+    out = {}
+    # a decode step's query meets every slot of the cache; the prefill's
+    # causal pairs are half of plen²
+    for name, t, pairs in (("decode", b, s_max),
+                           ("prefill", b * plen, plen * plen // 2)):
+        ex, total = flops(t, pairs)
+        ms = {"bytes": (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+              "operations": total / BF16_FLOP_PER_S * 1e3}
+        by = max(ms, key=ms.get)
+        out[name] = {"bound_ms": ms[by], "bound_by": by, "bytes_ms":
+                     ms["bytes"], "operations_ms": ms["operations"],
+                     "flops": total, "expert_flops": ex,
+                     "expert_ms": ex / BF16_FLOP_PER_S * 1e3,
+                     "capacity": _capacity(cfg, t)}
+    out["bytes"] = {"weights": w_bytes, "caches": cache_bytes}
+    return out
+
+
+def moe_split(cfg, params, b: int, plen: int):
+    """Layer 0's ``moe_ffn`` on the card at a decode batch (b tokens) and
+    a prefill (b × plen tokens) of bf16 normal inputs: the whole call and
+    its parts (router: logits, softmax, top-k; dispatch: ranks and the
+    capacity buffers; experts: the three batched products; combine: the
+    gather and the slot-order sum), each the median of MOE_SPLIT_REPS
+    synced calls (host time included: the parts are launch-bound at
+    decode)."""
+    import torch
+    from repro_torch.models import moe
+
+    p = {k: v[0] for k, v in params.layers["moe"].items()}
+    m = cfg.moe
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for name, t in (("decode", b), ("prefill", b * plen)):
+        xt = torch.randn((t, cfg.d_model), generator=gen, device="cuda"
+                         ).to(torch.bfloat16)
+        cap = moe._capacity(cfg, t)
+
+        def router():
+            return moe.route(xt, p["router"], m.top_k)
+        _, top_p, top_e = router()
+        flat_e = top_e.reshape(-1)
+
+        def dispatch():
+            pos = moe.rank_within(flat_e, m.num_experts)
+            keep = pos < cap
+            pos = torch.where(keep, pos, 0)
+            rows = xt[:, None].expand(t, m.top_k, -1).reshape(
+                t * m.top_k, -1)
+            return moe.dispatch(rows, (flat_e, pos), keep,
+                                (m.num_experts, cap, cfg.d_model)), pos, keep
+        disp, pos, keep = dispatch()
+
+        def experts():
+            return moe.swiglu_experts(disp, p["moe_gate"], p["moe_up"],
+                                      p["moe_down"])
+        y_e = experts()
+
+        def combine():
+            return moe.combine(y_e[flat_e, pos], top_p.reshape(-1), keep,
+                               m.top_k)
+        parts = {"router": router, "dispatch": dispatch,
+                 "experts": experts, "combine": combine,
+                 "moe_ffn": lambda: moe.moe_ffn(p, xt[None], cfg)}
+        with torch.inference_mode():
+            out[name] = {"tokens": t, "capacity": cap, "ms": {
+                k: float(np.median([_synced_ms(fn)[1]
+                                    for _ in range(MOE_SPLIT_REPS)]))
+                for k, fn in parts.items()}}
+    return out
+
+
+def moe_replay(cfg, params, seed: int):
+    """Phase 17 (c), the replay check: at capacity factor E/k (capacity =
+    tokens, so nothing drops anywhere) and float32 compute (the bf16
+    weights cast at use), ServeEngine's greedy tokens on MOE_PROMPTS
+    prompts of MOE_REPLAY_LEN tokens, MOE_REPLAY_STEPS steps; the prefill
+    and decode steps replayed on them pick the same tokens, and their
+    logits equal the teacher-forced ``forward``'s over prompt + generated
+    tokens (rtol = atol = 1e-4), whose argmax each token is wherever the
+    top-2 margin exceeds twice the row's replay error.  Every routing of
+    the replay (layer, row, position) is held to the forward's.  Where a
+    row's top-k sets first differ (its first such position, lowest
+    layer), the forward's gap between the k-th and (k+1)-th probability
+    must be a rounding-level tie (< 1e-5); the row's logits from that
+    position on are left out of the check, since the other route reaches
+    later layers and, through attention, later positions."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    m = cfg.moe
+    c16 = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    model = build_model(c16)
+    b, plen, steps = MOE_PROMPTS, MOE_REPLAY_LEN, MOE_REPLAY_STEPS
+    s_max = plen + steps
+    prompts = _stream_batch(c16, b, plen, seed + 37, 0, "cuda")["tokens"]
+    gen, _ = ServeEngine(model, params, s_max=s_max).generate(prompts, steps)
+    gen = gen.long()
+    L = cfg.num_layers
+    n = plen + steps - 1                     # positions the replay routes
+    with torch.inference_mode():
+        replay = []
+        with routing_record(replay):
+            logits, state = model.prefill(params, prompts, s_max)
+            picked = [logits[:, 0].float()]
+            for t in range(steps - 1):
+                logits, state = model.decode_step(params, state,
+                                                  gen[:, t:t + 1],
+                                                  inplace=True)
+                picked.append(logits[:, 0].float())
+        picked = torch.stack(picked, dim=1)
+        forward = []
+        with routing_record(forward):
+            seq = torch.cat([prompts, gen], 1)
+            tf = model.forward(params, seq)[0][:, plen - 1:n].float()
+    if not torch.equal(gen, picked.argmax(-1)):
+        raise AssertionError("moe replay: the replayed steps pick other "
+                             "tokens than generate")
+    k = m.top_k
+    diffs, gaps, kth = [], [], []
+    for layer in range(L):
+        r = [replay[layer][0].reshape(b, plen, k)]
+        r += [replay[L * (1 + t) + layer][0].reshape(b, 1, k)
+              for t in range(steps - 1)]
+        f_e, f_gap, f_kth = forward[layer]
+        diffs.append((torch.cat(r, 1) != f_e.reshape(b, n + 1, k)[:, :n]
+                      ).any(-1))
+        gaps.append(f_gap.reshape(b, n + 1)[:, :n])
+        kth.append(f_kth.reshape(b, n + 1)[:, :n])
+    diff, gap = torch.stack(diffs), torch.stack(gaps)          # (L, b, n)
+    at = torch.arange(n, device="cuda")
+    first_off = torch.where(diff.any(0), at, n).min(-1).values  # (b,)
+    # a row's first flip (its first position, lowest layer) is the one
+    # rounding may cause; the others follow from it
+    roots = []
+    for i in range(b):
+        p0 = int(first_off[i])
+        if p0 < n:
+            l0 = int(diff[:, i, p0].nonzero()[0, 0])
+            roots.append({"row": i, "position": p0, "layer": l0,
+                          "gap": float(gap[l0, i, p0]),
+                          "kth_prob": float(kth[l0][i, p0])})
+    worst_gap = max((r["gap"] for r in roots), default=0.0)
+    flips = int(diff.sum())
+    if worst_gap >= 1e-5:
+        raise AssertionError(f"moe replay: a token routed to other experts "
+                             f"than in the forward at a gap of {worst_gap}: "
+                             f"{roots}")
+    rows = (torch.arange(steps, device="cuda")[None] + plen - 1
+            < first_off[:, None])                              # (b, steps)
+    if not bool(rows.any()):
+        raise AssertionError("moe replay: every row routed otherwise than "
+                             "the forward at its first position")
+    err = (picked - tf).abs()
+    bad = err > 1e-4 + 1e-4 * tf.abs()
+    if bool((bad & rows[..., None]).any()):
+        raise AssertionError(f"moe replay: decode logits "
+                             f"{float(err[rows].max())} from the forward's")
+    eps = err.amax(-1)
+    top2 = torch.topk(tf, 2, dim=-1).values
+    checked = (top2[..., 0] - top2[..., 1] > 2 * eps) & rows
+    agree = gen == tf.argmax(-1)
+    if not bool(agree[checked].all()):
+        raise AssertionError(f"moe replay: {int((~agree & checked).sum())} "
+                             f"greedy tokens differ from the teacher-forced "
+                             f"argmax")
+    out = {"prompts": b, "prompt_len": plen, "steps": steps,
+           "capacity_factor": c16.moe.capacity_factor, "dtype": "float32",
+           "max_abs_replay_teacher": float(err[rows].max()),
+           "rows_checked": int(rows.sum()), "rows": rows.numel(),
+           "routing_flips": flips, "first_flips": roots,
+           "max_gap_at_first_flip": worst_gap,
+           "min_routing_gap": min(float(g.min()) for _, g, _ in forward),
+           "min_kth_prob": min(float(p.min()) for _, _, p in forward),
+           "tokens_checked": int(checked.sum()),
+           "tokens_equal_teacher_argmax": int(agree.sum()),
+           "tolerance": {"logits": 1e-4, "flip_gap": 1e-5}}
+    del state, tf, picked, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_serve(cfg, seed: int):
+    """Phase 17 (c): qwen3-moe-30b-a3b at full width and depth, bf16
+    storage and compute, random weights from ``seed``: ServeEngine
+    (:func:`engine_timings`) on MOE_PROMPTS prompts of MOE_PROMPT_LEN
+    tokens, MOE_STEPS greedy steps, at the config's capacity factor (its
+    launches of the six kernels counted: none); one profiled decode step
+    and one profiled prefill; a decode step at this capacity factor equal
+    bit for bit to one at E/k (a decode batch never drops); the steps'
+    bounds (:func:`moe_bounds`), the split of one layer's ``moe_ffn``
+    (:func:`moe_split`) and the replay check (:func:`moe_replay`).
+    Returns (facts, launches)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+
+    full = dataclasses.replace(cfg, param_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(full)
+    params, init_ms = _synced_ms(
+        model.init, torch.Generator(device="cuda").manual_seed(seed))
+    out = {"model": {
+        "layers": full.num_layers, "d_model": full.d_model,
+        "experts": full.moe.num_experts, "top_k": full.moe.top_k,
+        "capacity_factor": full.moe.capacity_factor,
+        "params": sum(p.numel() for p in params.parameters()),
+        "param_count": full.param_count(),
+        "active_param_count": full.active_param_count(),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in params.parameters()),
+        "param_dtype": full.param_dtype, "dtype": full.dtype,
+        "init_ms": init_ms, "peak_bytes": torch.cuda.max_memory_allocated()}}
+    b, plen, steps = MOE_PROMPTS, MOE_PROMPT_LEN, MOE_STEPS
+    prompts = _stream_batch(full, b, plen, seed + 7, 0, "cuda")["tokens"]
+    (facts, gen, picked, state), launches = counted(
+        engine_timings, model, params, prompts, steps)
+    if not (bool(torch.isfinite(picked).all())
+            and 0 <= int(gen.min()) and int(gen.max()) < full.vocab_size):
+        raise AssertionError("moe ServeEngine: non-finite logits or tokens "
+                             "out of the vocabulary")
+    del picked
+    facts.update(moe_bounds(full, params, b, plen, state))
+    tok = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+    st = [state._replace(pos=state.pos - steps)]
+
+    def decode():
+        with torch.inference_mode():
+            st[0] = model.decode_step(params, st[0], tok, inplace=True)[1]
+
+    def prefill():
+        with torch.inference_mode():
+            model.prefill(params, prompts, plen + steps)
+    facts["profile_decode_step"] = profile_call(decode, None)
+    facts["profile_prefill"] = profile_call(prefill, None)
+    m16 = build_model(dataclasses.replace(full, moe=dataclasses.replace(
+        full.moe, capacity_factor=full.moe.num_experts / full.moe.top_k)))
+    with torch.inference_mode():
+        l_cf = model.decode_step(params, st[0], tok)[0]
+        l_16 = m16.decode_step(params, st[0], tok)[0]
+    if not torch.equal(l_cf, l_16):
+        raise AssertionError("moe decode: capacity factor 1.25 and E/k "
+                             "differ at a decode batch")
+    facts["decode_equal_at_cf_e_over_k"] = True
+    del st, state, l_cf, l_16
+    facts["split"] = moe_split(full, params, b, plen)
+    out["engine"] = facts
+    out["replay"] = moe_replay(full, params, seed)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model, params
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def moe_phase(seed: int, smi):
+    """Phase 17: the moe family on the card, qwen3-moe-30b-a3b.  Returns
+    (the phase's line, its path launches)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH)
+    out = {"phase": "moe", "arch": cfg.name, "card": smi,
+           "allocated_bytes_at_start": torch.cuda.memory_allocated(),
+           "threads_at_start": sorted(t.name for t in threading.enumerate())}
+    for name, fn in (("card_vs_cpu_2_layers", moe_card_vs_cpu),
+                     ("lanes", moe_lanes)):
+        t0 = time.perf_counter()
+        out[name] = fn(cfg, seed)
+        out[name]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["full"], launches = moe_serve(cfg, seed)
+    out["full"]["seconds"] = time.perf_counter() - t0
+    path_launches = {"moe/ref": launches}
+    check_launches(path_launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, path_launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3010,6 +3550,11 @@ def main() -> int:
     for row in rows:
         # the training path launches none of the six kernels
         row["launches_train"] = train_launches["train/ref"][row["name"]]
+    moe, moe_launches = moe_phase(args.seed, smi)
+    emit(moe)
+    for row in rows:
+        # the moe path launches none of the six kernels
+        row["launches_moe"] = moe_launches["moe/ref"][row["name"]]
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -7,10 +7,11 @@
 Port of ``repro.launch.train``.  ``--device`` defaults to CUDA (and fails
 without a card); ``--device cpu`` trains on the CPU.  The mesh's positions
 are lanes of that one device (``--data`` splits the batch for
-``--compress``'s int8 all-reduce); the reference's ``use_rules(
-DEFAULT_RULES, mesh)`` resolves every parameter to replication on one
-device, so the port has no counterpart.  Checkpoints default to a
-directory under the temp dir.
+``--compress``'s int8 all-reduce), and the run is inside
+``use_rules(DEFAULT_RULES, mesh)`` as the reference's is (the mesh a
+moe model's ``moe_ffn_sharded`` splits over under
+``set_moe_impl("a2a")``).  Checkpoints default to a directory under the
+temp dir.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build_model
+from repro_torch.sharding import DEFAULT_RULES, use_rules
 from repro_torch.train import Trainer
 from repro_torch.train.train_step import make_compressed_dp_train_step
 
@@ -58,11 +60,12 @@ def main(argv=None) -> None:
                          batch=args.batch, seed=0, shard=0, num_shards=1)
 
     mesh = make_host_mesh(args.data, args.model, device=device)
-    step = None
-    if args.compress:
-        step = make_compressed_dp_train_step(model, tcfg, mesh)
-    trainer = Trainer(model, tcfg, stream, train_step=step)
-    trainer.run(steps=args.steps)
+    with use_rules(DEFAULT_RULES, mesh):
+        step = None
+        if args.compress:
+            step = make_compressed_dp_train_step(model, tcfg, mesh)
+        trainer = Trainer(model, tcfg, stream, train_step=step)
+        trainer.run(steps=args.steps)
     losses = [m["loss"] for m in trainer.metrics_log]
     print(f"done: arch={cfg.name} loss {losses[0]:.3f} -> {losses[-1]:.3f}")
 

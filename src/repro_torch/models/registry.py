@@ -8,8 +8,8 @@
     decode_step(params, state, token) -> (logits, decode_state)
     init_decode_state(batch, s_max) -> decode_state
 
-The dense and vlm families are ported (``CausalLM``); the others raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The dense, moe and vlm families are ported (``CausalLM``); the others
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Decoder-only transformer: dense GQA (llama/yi/qwen/mistral) and the
-M-RoPE VLM backbone (qwen2-vl).
+"""Decoder-only transformer: dense GQA (llama/yi/qwen/mistral), MoE
+(qwen3-moe/grok-1) and the M-RoPE VLM backbone (qwen2-vl).
 
 Port of ``repro.models.transformer``.  :class:`CausalLM` is an
 ``nn.Module`` that holds its weights in the reference's layout:
@@ -16,7 +16,10 @@ unbinds the stacked weights once into per-layer views
 (:func:`as_layers`) and runs the layers in a Python loop (``maybe_scan``
 with ``scan_layers=False``).  Weights are stored in ``param_dtype`` and
 cast to the compute dtype at each use, as the reference casts them inside
-its jit.
+its jit.  A moe layer's FFN is ``models.moe.moe_ffn``, or
+``models.moe_a2a.moe_ffn_sharded`` over the active mesh's lanes under
+``moe_a2a.set_moe_impl("a2a")``, as in the reference; its aux loss is
+the layer's.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ from repro_torch.config import (FAMILY_DENSE, FAMILY_MOE, FAMILY_VLM,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import moe_a2a
 from repro_torch.models.common import (cross_entropy, dtype_of,
                                        mrope_angles, normal_init, pdtype_of,
                                        rmsnorm, rmsnorm_init, rope_angles)
@@ -92,19 +97,15 @@ def as_layers(params) -> LayerParams:
 
 
 class CausalLM(nn.Module):
-    """A dense or VLM decoder on ``device`` (default CUDA).  Construction
-    allocates no weights: :meth:`init` draws them, or
+    """A dense, MoE or VLM decoder on ``device`` (default CUDA).
+    Construction allocates no weights: :meth:`init` draws them, or
     ``models.convert.params_from_jax`` loads the reference's."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family == FAMILY_MOE:
-            raise NotImplementedError(
-                "the moe family (models/moe.py, moe_a2a.py) is not ported "
-                "yet: ROADMAP.md §1 item 6")
-        if cfg.family not in (FAMILY_DENSE, FAMILY_VLM):
-            raise ValueError(f"CausalLM runs the dense and vlm families, "
-                             f"not {cfg.family!r}")
+        if cfg.family not in (FAMILY_DENSE, FAMILY_MOE, FAMILY_VLM):
+            raise ValueError(f"CausalLM runs the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
         self.cfg = cfg
         self._device = resolve_device(device)
 
@@ -120,12 +121,16 @@ class CausalLM(nn.Module):
     def _layer_init(self, generator: torch.Generator) -> dict:
         cfg = self.cfg
         pdt = pdtype_of(cfg)
-        return {
+        p = {
             "attn_norm": rmsnorm_init(cfg.d_model, pdt, self.device),
             "attn": attn.attn_init(generator, cfg, dtype=pdt),
             "ffn_norm": rmsnorm_init(cfg.d_model, pdt, self.device),
-            "mlp": mlp_mod.swiglu_init(generator, cfg, pdt),
         }
+        if cfg.family == FAMILY_MOE:
+            p["moe"] = moe_mod.moe_init(generator, cfg, pdt)
+        else:
+            p["mlp"] = mlp_mod.swiglu_init(generator, cfg, pdt)
+        return p
 
     def init(self, generator: torch.Generator) -> "CausalLM":
         """Draw every weight from ``generator`` (which must live on the
@@ -211,9 +216,15 @@ class CausalLM(nn.Module):
                                    cache=cache, pos=pos)
         x = x + a
         h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
-        f = mlp_mod.swiglu(p["mlp"], h)
-        return x + f, new_cache, torch.zeros((), dtype=torch.float32,
-                                             device=x.device)
+        if cfg.family == FAMILY_MOE:
+            if moe_a2a.moe_impl() == "a2a":
+                f, aux = moe_a2a.moe_ffn_sharded(p["moe"], h, cfg)
+            else:
+                f, aux = moe_mod.moe_ffn(p["moe"], h, cfg)
+        else:
+            f = mlp_mod.swiglu(p["mlp"], h)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + f, new_cache, aux
 
     @staticmethod
     def _positions(tokens: torch.Tensor) -> torch.Tensor:

@@ -116,7 +116,8 @@ LM_MODULES = ["config.py", "configs/__init__.py", "configs/qwen2_5_3b.py",
               "models/common.py", "models/attention.py", "models/mlp.py",
               "models/transformer.py", "models/registry.py",
               "models/convert.py", "data/tokens.py", "data/vectors.py",
-              "serve/engine.py", "serve/knnlm.py", "launch/serve.py"]
+              "serve/engine.py", "serve/knnlm.py", "launch/serve.py",
+              "sharding.py", "models/moe.py", "models/moe_a2a.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -7,7 +7,9 @@ searches through them past 65,535 query rows; index builds, live updates,
 the α-prune and the hnsw descent on the card equal to the CPU's; the
 walker-sharded search on (1, 1) and (1, 4) meshes through every f32
 backend, and a 4-shard partitioned build, its corpus search and its engine,
-equal to the CPU's.
+equal to the CPU's; the LMs (dense, vlm, moe: ``moe_ffn`` and its lane
+paths on (2, 4) and (1, 3) meshes), kNN-LM and the train step equal to the
+CPU's.
 
 Every test here needs a CUDA device (the kernels are CUDA C++ with no CPU
 mode) and skips without one.  The file imports no JAX, so it also runs on a
@@ -1038,3 +1040,111 @@ def test_checkpoint_written_on_card_loads_on_cpu(cuda_device, tmp_path):
     for (p, a), (_, b) in zip(flatten_with_path(back),
                               flatten_with_path(on_card)):
         assert a.device.type == "cpu" and torch.equal(a, b.cpu()), p
+
+
+def _moe_case(experts: int, cf: float, d_ff: int = 48):
+    from repro_torch.config import FAMILY_MOE, ModelConfig, MoEConfig
+    from repro_torch.models import moe
+    cfg = ModelConfig(name="moe-t", family=FAMILY_MOE, num_layers=1,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=d_ff,
+                      vocab_size=128, dtype="float32",
+                      moe=MoEConfig(num_experts=experts, top_k=2,
+                                    capacity_factor=cf))
+    p = moe.moe_init(torch.Generator().manual_seed(experts), cfg,
+                     torch.float32)
+    x = torch.randn((4, 24, 64), generator=torch.Generator().manual_seed(9))
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("cf", [4.0, 1.0])
+def test_moe_ffn_on_card_equals_cpu(cuda_device, cf):
+    """``moe_ffn`` and its gradients on the card equal the CPU's (f32,
+    1e-5), with the same tokens dropped at cf 1.0; two runs on the card
+    agree bit for bit, gradients included (no float atomics)."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_case(8, cf)
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(4))
+
+    def run(device):
+        pp = {k: v.detach().to(device).requires_grad_(True)
+              for k, v in p.items()}
+        xx = x.detach().to(device).requires_grad_(True)
+        y, aux = moe.moe_ffn(pp, xx, cfg)
+        (torch.sum(y * w.to(device)) + aux).backward()
+        grads = {k: v.grad for k, v in pp.items()}
+        return y.detach(), aux.detach(), xx.grad, grads
+    y_c, aux_c, gx_c, g_c = run("cpu")
+    y_g, aux_g, gx_g, g_g = run("cuda")
+    torch.testing.assert_close(y_g.cpu(), y_c, rtol=1e-5, atol=1e-5)
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-6
+    for k in g_c:
+        tol = 1e-5 * float(g_c[k].abs().max())
+        torch.testing.assert_close(g_g[k].cpu(), g_c[k], rtol=1e-5,
+                                   atol=tol, msg=k)
+    torch.testing.assert_close(gx_g.cpu(), gx_c, rtol=1e-5,
+                               atol=1e-5 * float(gx_c.abs().max()))
+    y2, aux2, gx2, g2 = run("cuda")
+    assert torch.equal(y2, y_g) and torch.equal(aux2, aux_g)
+    assert torch.equal(gx2, gx_g)
+    assert all(torch.equal(g2[k], g_g[k]) for k in g_g)
+
+
+@pytest.mark.parametrize("shape,experts", [((2, 4), 8), ((1, 3), 4)],
+                         ids=["a2a-2x4", "tp-1x3"])
+@pytest.mark.parametrize("cf", [8.0, 1.0])
+def test_moe_lane_paths_on_card_equal_cpu(cuda_device, shape, experts, cf):
+    """``moe_ffn_sharded`` over a mesh of lanes on the card equals the
+    same on the CPU (1e-5); where nothing drops (cf 8) it equals
+    ``moe_ffn``."""
+    from repro_torch.models import moe, moe_a2a
+    from repro_torch.sharding import DEFAULT_RULES, use_rules
+    cfg, p, x = _moe_case(experts, cf)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = make_search_mesh(shape, device=dev)
+        pp = {k: v.to(dev) for k, v in p.items()}
+        with use_rules(DEFAULT_RULES, mesh):
+            out[dev] = moe_a2a.moe_ffn_sharded(pp, x.to(dev), cfg)
+        if cf == 8.0:
+            y0, aux0 = moe.moe_ffn(pp, x.to(dev), cfg)
+            torch.testing.assert_close(out[dev][0], y0, rtol=1e-5, atol=1e-5)
+            assert abs(float(out[dev][1]) - float(aux0)) <= 1e-6
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               rtol=1e-5, atol=1e-5)
+    assert abs(float(out["cuda"][1]) - float(out["cpu"][1])) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "grok-1-314b"])
+def test_moe_lm_on_card_equals_cpu(cuda_device, arch):
+    """The moe smoke models (f32) on the card: forward logits and aux,
+    prefill and two decode steps equal the CPU's (1e-4)."""
+    cfg, cpu, card = _lm(arch, "float32")
+    toks = torch.from_numpy(np.random.RandomState(53).randint(
+        0, cfg.vocab_size, size=(3, 12)))
+    want, aux_c = cpu.forward(cpu, toks)
+    got, aux_g = card.forward(card, toks.cuda())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-6
+    lp_c, st_c = cpu.prefill(cpu, toks[:, :10], 14)
+    lp_g, st_g = card.prefill(card, toks[:, :10].cuda(), 14)
+    torch.testing.assert_close(lp_g.cpu(), lp_c, rtol=1e-4, atol=1e-4)
+    for i in (10, 11):
+        ld_c, st_c = cpu.decode_step(cpu, st_c, toks[:, i:i + 1])
+        ld_g, st_g = card.decode_step(card, st_g, toks[:, i:i + 1].cuda())
+    torch.testing.assert_close(ld_g.cpu(), ld_c, rtol=1e-4, atol=1e-4)
+
+
+def test_moe_top_k_ties_on_card(cuda_device):
+    """Among equal probabilities the lowest experts come first, as
+    ``jax.lax.top_k`` orders them: a router of zeros routes every token to
+    experts 0..k−1, and one expert above a tie leads it."""
+    from repro_torch.models import moe
+    x = torch.randn((4096, 64), generator=torch.Generator().manual_seed(5))
+    _, _, top_e = moe.route(x.cuda(), torch.zeros((64, 128), device="cuda"),
+                            8)
+    assert torch.equal(top_e.cpu(), torch.arange(8).expand(4096, 8))
+    probs = torch.full((4096, 128), 1 / 256, device="cuda")
+    probs[:, 77] = 0.5
+    _, idx = moe.top_k(probs, 8)
+    assert torch.equal(idx.cpu(), torch.tensor([77, 0, 1, 2, 3, 4, 5, 6]
+                                               ).expand(4096, 8))
