@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the port's Speed-ANN search, serving and build paths, and its LMs
-(dense with kNN-LM retrieval and training; the moe family), on one GPU.
+(dense with kNN-LM retrieval and training; the moe, ssm and hybrid
+families), on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--profile-src DIR]
 
@@ -89,8 +90,10 @@ Phases, one JSON line each:
                (max_wait 2 ms) on its dispatcher thread fed the 264
                queries one at a time, four times over, with Poisson gaps
                from --seed at half the rate the 64-bucket sustains on real
-               queries, every answer equal to the direct single-query
-               search and the served rate at least 90% of the offered
+               queries, every answer equal to the query's direct search
+               (``index.searcher`` in batches of 64, the first 32 also one
+               at a time and equal) and the served rate at least 90% of
+               the offered
                (latency p50/p99, queue wait, mean batch, queries/s); a
                cached server given 64 of them twice, the second 64 all
                hits and equal; a ReplicaRouter of two engines with a hedge
@@ -195,7 +198,22 @@ Phases, one JSON line each:
                E/k, and the replay check at E/k in f32 compute (greedy
                tokens = teacher-forced argmax, replayed logits = forward,
                routing held token by token).  The kernels line's rows
-               gain ``launches_moe`` (0).
+               gain ``launches_moe`` (0);
+ 18. ssm     — mamba2-2.7b, then zamba2-7b (random weights from --seed;
+               after phase 17 has freed its model): at full width and 2
+               layers (zamba2: 8 positions, one group of 6, the shared
+               block, 1 tail layer; f32, 2 × 64 tokens) forward logits
+               (1e-4), the loss and every gradient leaf (1e-4 of the
+               leaf's largest) against the CPU's; at full width and depth
+               (f32 storage, bf16 compute) ServeEngine on 8 prompts of 512
+               tokens, 32 greedy steps (prefill and decode ms beside their
+               bounds, tokens/s, peak memory, a profiled decode step and
+               prefill, no kernel launched), replayed against the
+               teacher-forced forward over the 544 tokens (phase 15's
+               check), and a replay in f32 compute on 8 × 64 + 8 steps
+               (logits within 1e-4 of each row's largest, tokens the
+               teacher-forced argmax).  The kernels line's rows gain
+               ``launches_ssm`` (0).
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -215,6 +233,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -306,6 +325,20 @@ MOE_LANE_MESHES = ((2, 4), (1, 3))      # a2a: 128 % 4 = 0; tp: 128 % 3 != 0
 MOE_PROMPTS, MOE_PROMPT_LEN, MOE_STEPS = 8, 512, 32
 MOE_REPLAY_LEN, MOE_REPLAY_STEPS = 64, 8
 MOE_SPLIT_REPS = 20
+# phase 18 (ssm): mamba2-2.7b and zamba2-7b at full width and depth (f32
+# storage, bf16 compute), one after the other.  Card vs CPU at the depth
+# SSM_ARCHS gives (f32, SSM_CHECK_ROWS × SSM_CHECK_SEQ tokens: mamba2 2
+# layers; zamba2 8 positions, one group of 6, the shared block, 1 tail
+# layer); ServeEngine on SSM_PROMPTS prompts of SSM_PROMPT_LEN tokens,
+# SSM_STEPS greedy steps, replayed against the teacher-forced forward over
+# all 544 tokens (gcd(544, 256) = 32: chunks of 32; 543 would run 543
+# chunks of 1)
+SSM_ARCHS = {"mamba2-2.7b": 2, "zamba2-7b": 8}
+SSM_CHECK_ROWS, SSM_CHECK_SEQ = 2, 64
+SSM_PROMPTS, SSM_PROMPT_LEN, SSM_STEPS = 8, 512, 32
+# and the replay in float32 compute on SSM_REPLAY_LEN-token prompts,
+# SSM_REPLAY_STEPS steps (72 tokens: chunks of 8)
+SSM_REPLAY_LEN, SSM_REPLAY_STEPS = 64, 8
 
 
 def knnlm_gather_shapes(n_keys: int, build_batch: int = BUILD_BATCH,
@@ -1342,8 +1375,9 @@ def serve_coalescer(index, queries_np, params, direct, bucket64_ms, seed):
     """Phase 12 (3): the 264 queries, COALESCE_PASSES times over, one at a
     time with Poisson gaps from ``seed`` at half the rate the 64-bucket
     sustains on real queries (64 over its p50), through ``serve_async``'s
-    dispatcher thread on the real clock: every answer equal to the direct
-    single-query search, and the served rate at least 90% of the offered
+    dispatcher thread on the real clock: every answer equal to the
+    query's direct search (:func:`direct_answers`), and the served rate at
+    least 90% of the offered
     (the queue did not grow).  Then a cached server given 64 of them
     twice: the second 64 all hits, equal."""
     from repro_torch.serve import CachePolicy
@@ -1513,6 +1547,26 @@ def serve_obs(index, queries, params):
             "registry_series": sorted(reg)}
 
 
+def direct_answers(searcher, queries):
+    """Each query's (ids, dists) from ``searcher`` in batches of 64 (a
+    lane's answer does not depend on its batch, which the engine's padded
+    requests show), the first ROUTER_QUERIES of them also searched one at
+    a time and equal to their rows: the answers the coalescer, the cache
+    and the router must give.  (All 264 one at a time took ~50 s.)"""
+    found = []
+    for s in range(0, queries.shape[0], 64):
+        r = searcher(queries[s:s + 64])
+        found += [(i.cpu().numpy(), d.cpu().numpy())
+                  for i, d in zip(r.ids, r.dists)]
+    for i in range(ROUTER_QUERIES):
+        r = searcher(queries[i:i + 1])
+        if not (np.array_equal(r.ids[0].cpu().numpy(), found[i][0])
+                and np.array_equal(r.dists[0].cpu().numpy(), found[i][1])):
+            raise AssertionError(f"query {i}: its single search differs "
+                                 f"from its batch's row")
+    return found
+
+
 def serve_phase(index, qindex, queries, seed, smi):
     """Phase 12: the serving stack on the card, on the 1M fixture index and
     its int8 copy.  Returns (the phase's line, its path launches)."""
@@ -1531,16 +1585,8 @@ def serve_phase(index, qindex, queries, seed, smi):
     facts, path_launches, engine = part("engine", serve_engine, index,
                                         qindex, queries, params, qparams)
     out["engine"] = facts
-    searcher = index.searcher(params)
-
-    def direct_searches():
-        found = []
-        for i in range(queries.shape[0]):
-            r = searcher(queries[i:i + 1])
-            found.append((r.ids[0].cpu().numpy(),
-                          r.dists[0].cpu().numpy()))
-        return found
-    direct = part("direct", direct_searches)
+    direct = part("direct", direct_answers, index.searcher(params),
+                  queries)
     queries_np = queries.cpu().numpy()
     out["coalescer"] = part("coalescer", serve_coalescer, index, queries_np,
                             params, direct, facts["bucket_ms"]["64"]["p50"],
@@ -2158,35 +2204,32 @@ def engine_timings(model, params, prompts, steps: int):
             gen, picked, state)
 
 
-def lm_engine(model, params, seed: int):
-    """Phase 15 (3): ServeEngine on qwen2.5-3b: KNNLM_PROMPTS prompts of
-    KNNLM_PROMPT_LEN tokens, KNNLM_STEPS greedy steps
-    (:func:`engine_timings`).  The logits that picked each token are held
+def _logits_of(out):
+    """A model's forward logits: a ``CausalLM`` returns (logits, aux), the
+    ssm and hybrid models their logits."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def lm_replay(model, params, prompts, gen, picked):
+    """The logits that picked each of :func:`engine_timings`' tokens held
     to the teacher-forced ``forward`` over prompt + generated tokens at its
     position: no farther from it than the farther of the two is from the
     float32 forward (bf16 runs of another shape round in another order).
     Each token is that forward's argmax wherever its top-2 margin exceeds
     twice the replay's largest |difference| in its row (there the two
-    argmaxes must agree).  Prefill ms, decode ms a step (p50), tokens/s,
-    peak memory, and the decode step beside the bytes it must move (every
-    weight in its stored dtype, the filled caches)."""
+    argmaxes must agree)."""
     import dataclasses
     import torch
-    from repro_torch.data.tokens import TokenStream, _batch_at
     from repro_torch.models import build_model
 
     cfg = model.cfg
-    b, plen, steps = KNNLM_PROMPTS, KNNLM_PROMPT_LEN, KNNLM_STEPS
-    prompts = torch.from_numpy(_batch_at(TokenStream(
-        cfg.vocab_size, plen + 1, b, seed + 7, 0, 1), 0)["tokens"]).cuda()
-    facts, gen, picked, state = engine_timings(model, params, prompts,
-                                               steps)
+    plen, steps = prompts.shape[1], gen.shape[1]
     with torch.inference_mode():
         seq = torch.cat([prompts, gen.long()], 1)
         window = slice(plen - 1, plen - 1 + steps)
-        tf = model.forward(params, seq)[0][:, window].float()
-        f32 = build_model(dataclasses.replace(cfg, dtype="float32")).forward(
-            params, seq)[0][:, window]
+        tf = _logits_of(model.forward(params, seq))[:, window].float()
+        f32 = _logits_of(build_model(dataclasses.replace(
+            cfg, dtype="float32")).forward(params, seq))[:, window]
     pair, replay_err, tf_err = bf16_pair_err(picked, tf, f32)
     del f32
     if pair > max(replay_err, tf_err):
@@ -2201,17 +2244,37 @@ def lm_engine(model, params, seed: int):
         raise AssertionError(f"ServeEngine: {int((~agree & checked).sum())} "
                              f"greedy tokens differ from the teacher-forced "
                              f"argmax")
+    return {"max_abs_replay_teacher": pair, "max_abs_replay_f32": replay_err,
+            "max_abs_teacher_f32": tf_err,
+            "tokens_checked": int(checked.sum()),
+            "tokens_near_tie": int((~checked).sum()),
+            "tokens_equal_teacher_argmax": int(agree.sum())}
+
+
+def lm_engine(model, params, seed: int):
+    """Phase 15 (3): ServeEngine on qwen2.5-3b: KNNLM_PROMPTS prompts of
+    KNNLM_PROMPT_LEN tokens, KNNLM_STEPS greedy steps
+    (:func:`engine_timings`), replayed against the teacher-forced forward
+    (:func:`lm_replay`).  Prefill ms, decode ms a step (p50), tokens/s,
+    peak memory, and the decode step beside the bytes it must move (every
+    weight in its stored dtype, the filled caches)."""
+    import torch
+    from repro_torch.data.tokens import TokenStream, _batch_at
+
+    cfg = model.cfg
+    b, plen, steps = KNNLM_PROMPTS, KNNLM_PROMPT_LEN, KNNLM_STEPS
+    prompts = torch.from_numpy(_batch_at(TokenStream(
+        cfg.vocab_size, plen + 1, b, seed + 7, 0, 1), 0)["tokens"]).cuda()
+    facts, gen, picked, state = engine_timings(model, params, prompts,
+                                               steps)
+    replay = lm_replay(model, params, prompts, gen, picked)
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     cache_bytes = sum(t.numel() * t.element_size() for t in state.caches)
     bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
     return {**facts,
             "decode_bound_ms": bound_ms, "decode_bound_by": "bytes",
             "decode_bound_bytes": {"weights": w_bytes, "caches": cache_bytes},
-            "max_abs_replay_teacher": pair, "max_abs_replay_f32": replay_err,
-            "max_abs_teacher_f32": tf_err,
-            "tokens_checked": int(checked.sum()),
-            "tokens_near_tie": int((~checked).sum()),
-            "tokens_equal_teacher_argmax": int(agree.sum())}, state
+            **replay}, state
 
 
 def knnlm_datastore(model, params, seed: int, n_batches: int):
@@ -3315,6 +3378,7 @@ def moe_phase(seed: int, smi):
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
+    gc.collect()              # what the train phase left in cycles
     torch.cuda.empty_cache()
     cfg = get_config(MOE_ARCH)
     out = {"phase": "moe", "arch": cfg.name, "card": smi,
@@ -3329,6 +3393,269 @@ def moe_phase(seed: int, smi):
     out["full"], launches = moe_serve(cfg, seed)
     out["full"]["seconds"] = time.perf_counter() - t0
     path_launches = {"moe/ref": launches}
+    check_launches(path_launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, path_launches
+
+
+def ssm_card_vs_cpu(cfg, depth: int, seed: int):
+    """Phase 18 (a): ``cfg`` at full width and ``depth`` positions, f32,
+    one batch of SSM_CHECK_ROWS × SSM_CHECK_SEQ tokens: the card's forward
+    logits within rtol = atol = 1e-4 of the CPU's, the loss within 1e-4
+    relative and every gradient leaf within 1e-4 of its largest magnitude
+    (phases 16 and 17's bars).  The weights are drawn on the card and
+    copied to the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import _zeros, loss_and_grad
+    from repro_torch.treepath import tree_map
+
+    small = dataclasses.replace(cfg, num_layers=depth, dtype="float32")
+    m_card, m_cpu = build_model(small), build_model(small, device="cpu")
+    card = m_card.init_tree(torch.Generator(device="cuda").manual_seed(seed))
+    cpu = tree_map(lambda t: t.cpu(), card)
+    batch = _stream_batch(small, SSM_CHECK_ROWS, SSM_CHECK_SEQ, seed + 41,
+                          0, "cpu")
+    batch_g = {k: v.cuda() for k, v in batch.items()}
+    with torch.inference_mode():
+        want = m_cpu.forward(cpu, batch["tokens"])
+        got = m_card.forward(card, batch_g["tokens"]).cpu()
+    logit_err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               msg=lambda m: f"{cfg.name} logits, card vs "
+                               f"CPU: {m}")
+    del want, got
+    g_cpu, g_card = _zeros(cpu), _zeros(card)
+    loss_cpu = float(loss_and_grad(m_cpu, cpu, batch, True, g_cpu))
+    loss_card = float(loss_and_grad(m_card, card, batch_g, True, g_card))
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = max((float((a.cpu() - b).abs().max() / b.abs().max()), k)
+                for (k, a), (_, b) in zip(_leaf_items(g_card),
+                                          _leaf_items(g_cpu)))
+    if rel > 1e-4 or worst[0] > 1e-4:
+        raise AssertionError(f"{cfg.name} train card vs CPU: loss {rel}, "
+                             f"gradient {worst}")
+    n_leaves = len(_leaf_items(g_card))
+    del card, cpu, g_cpu, g_card
+    torch.cuda.empty_cache()
+    return {"positions": depth, "tokens": SSM_CHECK_ROWS * SSM_CHECK_SEQ,
+            "max_abs_logit_err": logit_err, "loss": loss_card,
+            "loss_rel_err": rel, "max_grad_err_rel_to_leaf_max": worst[0],
+            "worst_leaf": worst[1], "gradient_leaves": n_leaves,
+            "tolerance": {"logits": 1e-4, "loss_grads": 1e-4}}
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.treepath import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def ssm_bounds(cfg, params, b: int, plen: int, state):
+    """The least time of a decode step of ``b`` tokens and of a prefill of
+    ``b`` × ``plen`` tokens.  Bytes: every weight once (the embedding is
+    also the head, so all of it), the zamba2 shared block once more at
+    each further application (1.75 GB cannot stay in the 50 MB L2 between
+    them), the SSM states (conv windows and (H, P, N) states) read and
+    written, the KV caches read.  Operations: the bf16 projections (the
+    mamba in/out projections, the shared block's attention and MLP
+    products, the head at the last position) at the bf16 peak, plus the
+    float32 products (the SSD's four contractions at this T's chunk, B·Cᵀ
+    once a group, and attention's two products over the causal pairs) at
+    the f32 peak, one after the other."""
+    import math
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.params import params_tree
+    from repro_torch.models.zamba2 import _layout
+
+    tree = params_tree(params)
+    s, d_in, nh, conv_ch = ssm_mod._dims(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    hybrid = cfg.family == "hybrid"
+    if hybrid:
+        groups, per, tail = _layout(cfg)
+        n_mamba = groups * per + tail
+        ssm_states = [state.ssm_grouped, state.ssm_tail]
+        caches = _nbytes(state.attn_caches)
+        shared = _nbytes(tree["shared"])
+    else:
+        groups, n_mamba, ssm_states, caches, shared = (
+            0, cfg.num_layers, [state.states], 0, 0)
+    w_bytes = _nbytes(tree)
+    st_bytes = _nbytes(ssm_states)
+    dec_bytes = w_bytes + max(groups - 1, 0) * shared + 2 * st_bytes + caches
+    t = b * plen
+    out_dim = d_in + conv_ch + nh
+    bf16 = n_mamba * 2 * t * (d * out_dim + d_in * d) + 2 * b * d * v
+    chunk = math.gcd(plen, s.chunk)
+    c = plen // chunk
+    ssd = 2 * b * c * chunk * (s.ngroups * chunk * s.state_dim
+                               + nh * chunk * s.head_dim
+                               + 2 * nh * s.head_dim * s.state_dim)
+    f32 = n_mamba * ssd
+    if hybrid:
+        d2, hd = 2 * d, cfg.resolved_head_dim
+        qkvo = d2 * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+        bf16 += groups * 2 * t * (qkvo + 2 * d2 * cfg.d_ff + d2 * d)
+        f32 += groups * 2 * 2 * b * cfg.num_heads * hd * (plen * plen // 2)
+    out = {"bytes": {"weights": w_bytes, "shared_block": shared,
+                     "ssm_state": st_bytes, "caches": caches,
+                     "decode": dec_bytes},
+           "prefill_flops": {"bf16": bf16, "f32": f32, "chunk": chunk}}
+    ops_ms = (bf16 / BF16_FLOP_PER_S + f32 / F32_FLOP_PER_S) * 1e3
+    for name, nbytes, ms_ops in (("decode", dec_bytes, 0.0),
+                                 ("prefill", w_bytes, ops_ms)):
+        ms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ms_ops}
+        by = max(ms, key=ms.get)
+        out[name] = {"bound_ms": ms[by], "bound_by": by,
+                     "bytes_ms": ms["bytes"],
+                     "operations_ms": ms["operations"]}
+    out["prefill"]["bf16_ms"] = bf16 / BF16_FLOP_PER_S * 1e3
+    out["prefill"]["f32_ms"] = f32 / F32_FLOP_PER_S * 1e3
+    return out
+
+
+def ssm_replay(cfg, params, seed: int):
+    """Phase 18 (c), the replay in float32 compute (the f32 weights as
+    stored, where the bf16 replay's rounding leaves most tokens near a
+    tie): ServeEngine's greedy tokens on SSM_PROMPTS prompts of
+    SSM_REPLAY_LEN tokens, SSM_REPLAY_STEPS steps; the prefill and decode
+    steps replayed on them pick the same tokens, and their logits equal
+    the teacher-forced ``forward``'s over prompt + generated tokens within
+    1e-4 of the row's largest |logit| (as phases 16–18 hold a gradient
+    leaf to 1e-4 of its largest: the decode's recurrence and the prefill's
+    chunked form round differently through 64–81 positions), whose argmax
+    each token is wherever the top-2 margin exceeds twice the row's
+    replay error."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(f32)
+    b, plen, steps = SSM_PROMPTS, SSM_REPLAY_LEN, SSM_REPLAY_STEPS
+    s_max = plen + steps
+    prompts = _stream_batch(f32, b, plen, seed + 37, 0, "cuda")["tokens"]
+    gen, _ = ServeEngine(model, params, s_max=s_max).generate(prompts, steps)
+    gen = gen.long()
+    with torch.inference_mode():
+        logits, state = model.prefill(params, prompts, s_max)
+        picked = [logits[:, 0].float()]
+        for t in range(steps - 1):
+            logits, state = model.decode_step(params, state,
+                                              gen[:, t:t + 1], inplace=True)
+            picked.append(logits[:, 0].float())
+        picked = torch.stack(picked, dim=1)
+        tf = model.forward(params, torch.cat([prompts, gen], 1))[
+            :, plen - 1:plen - 1 + steps].float()
+    if not torch.equal(gen, picked.argmax(-1)):
+        raise AssertionError(f"{cfg.name} replay: the replayed steps pick "
+                             f"other tokens than generate")
+    err = (picked - tf).abs()
+    scale = tf.abs().amax(-1, keepdim=True)                  # (B, steps, 1)
+    if bool((err > 1e-4 * scale).any()):
+        raise AssertionError(f"{cfg.name} replay: decode logits "
+                             f"{float(err.max())} from the forward's "
+                             f"(rows' largest |logit| from "
+                             f"{float(scale.min())})")
+    top2 = torch.topk(tf, 2, dim=-1).values
+    checked = top2[..., 0] - top2[..., 1] > 2 * err.amax(-1)
+    agree = gen == tf.argmax(-1)
+    if not bool(agree[checked].all()):
+        raise AssertionError(f"{cfg.name} replay: "
+                             f"{int((~agree & checked).sum())} greedy tokens "
+                             f"differ from the teacher-forced argmax")
+    del state, tf, picked, model
+    torch.cuda.empty_cache()
+    return {"prompts": b, "prompt_len": plen, "steps": steps,
+            "dtype": "float32", "max_abs_replay_teacher": float(err.max()),
+            "max_err_rel_to_row_max": float((err / scale).max()),
+            "min_row_max_logit": float(scale.min()),
+            "tokens_checked": int(checked.sum()),
+            "tokens_equal_teacher_argmax": int(agree.sum()),
+            "tolerance": "1e-4 of the row's largest |logit|"}
+
+
+def ssm_serve(cfg, seed: int):
+    """Phase 18 (b): ``cfg`` at full width and depth, f32 storage and bf16
+    compute, random weights from ``seed``: ServeEngine
+    (:func:`engine_timings`) on SSM_PROMPTS prompts of SSM_PROMPT_LEN
+    tokens, SSM_STEPS greedy steps (its launches of the six kernels
+    counted: none), replayed against the teacher-forced forward
+    (:func:`lm_replay`); the steps' bounds (:func:`ssm_bounds`); one
+    profiled decode step and one profiled prefill; the replay in float32
+    compute (:func:`ssm_replay`).  Returns (facts, launches)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import ssm as ssm_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params, init_ms = _synced_ms(
+        model.init, torch.Generator(device="cuda").manual_seed(seed))
+    out = {"model": {
+        "family": cfg.family, "positions": cfg.num_layers,
+        "d_model": cfg.d_model, "ssm_heads": ssm_mod._dims(cfg)[2],
+        "params": sum(p.numel() for p in params.parameters()),
+        "param_count": cfg.param_count(),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in params.parameters()),
+        "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+        "init_ms": init_ms, "peak_bytes": torch.cuda.max_memory_allocated()}}
+    b, plen, steps = SSM_PROMPTS, SSM_PROMPT_LEN, SSM_STEPS
+    prompts = _stream_batch(cfg, b, plen, seed + 7, 0, "cuda")["tokens"]
+    (facts, gen, picked, state), launches = counted(
+        engine_timings, model, params, prompts, steps)
+    if not (bool(torch.isfinite(picked).all())
+            and 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
+        raise AssertionError(f"{cfg.name} ServeEngine: non-finite logits or "
+                             f"tokens out of the vocabulary")
+    facts.update(lm_replay(model, params, prompts, gen, picked))
+    del picked
+    facts.update(ssm_bounds(cfg, params, b, plen, state))
+    tok = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+    st = [state._replace(pos=state.pos - steps)]
+
+    def decode():
+        with torch.inference_mode():
+            st[0] = model.decode_step(params, st[0], tok, inplace=True)[1]
+
+    def prefill():
+        with torch.inference_mode():
+            model.prefill(params, prompts, plen + steps)
+    facts["profile_decode_step"] = profile_call(decode, None)
+    facts["profile_prefill"] = profile_call(prefill, None)
+    del st, state
+    out["engine"] = facts
+    out["replay_f32"] = ssm_replay(cfg, params, seed)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model, params
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def ssm_phase(seed: int, smi):
+    """Phase 18: the ssm and hybrid families on the card, mamba2-2.7b then
+    zamba2-7b.  Returns (the phase's line, its path launches)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "ssm", "card": smi,
+           "allocated_bytes_at_start": torch.cuda.memory_allocated()}
+    path_launches = {}
+    for arch, depth in SSM_ARCHS.items():
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        one = {"card_vs_cpu": ssm_card_vs_cpu(cfg, depth, seed)}
+        one["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one["full"], path_launches[f"ssm-{arch}/ref"] = ssm_serve(cfg, seed)
+        one["full"]["seconds"] = time.perf_counter() - t0
+        out[arch] = one
     check_launches(path_launches)
     out["seconds"] = time.perf_counter() - t_phase
     return out, path_launches
@@ -3555,6 +3882,12 @@ def main() -> int:
     for row in rows:
         # the moe path launches none of the six kernels
         row["launches_moe"] = moe_launches["moe/ref"][row["name"]]
+    ssm, ssm_launches = ssm_phase(args.seed, smi)
+    emit(ssm)
+    for row in rows:
+        # nor do the ssm and hybrid paths
+        row["launches_ssm"] = sum(c[row["name"]]
+                                  for c in ssm_launches.values())
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

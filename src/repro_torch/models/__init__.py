@@ -1,5 +1,7 @@
 """The port's models (``repro.models``): the dense, moe and vlm families
 through ``CausalLM`` (``transformer.py``, with ``attention.py``,
-``mlp.py``, ``moe.py``, ``moe_a2a.py`` and ``common.py``); the encdec, ssm
-and hybrid families are not ported yet (``registry.py``)."""
+``mlp.py``, ``moe.py``, ``moe_a2a.py`` and ``common.py``), the ssm family
+through ``MambaLM`` (``mamba_lm.py``) and the hybrid family through
+``Zamba2Model`` (``zamba2.py``), both on ``ssm.py``; the encdec family is
+not ported yet (``registry.py``)."""
 from repro_torch.models.registry import build_model  # noqa: F401

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 
@@ -65,6 +66,14 @@ def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Mamba2's RMSNorm(x * silu(z)) output gate."""
+    xf = x.float() * F.silu(z.float())
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def layernorm_init(d: int, dtype, device=None) -> dict:

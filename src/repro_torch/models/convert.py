@@ -1,9 +1,9 @@
 """The reference's parameters in the port, and back.
 
-``repro``'s ``CausalLM.init`` returns a nested dict whose per-layer leaves
-carry a leading ``layers`` axis (stacked for ``lax.scan``); a port
-:class:`~repro_torch.models.transformer.CausalLM` holds its weights in the
-same layout.  Given that tree as numpy arrays
+``repro``'s models' ``init`` returns a nested dict whose per-layer leaves
+carry leading stacked axes (for ``lax.scan``: ``layers``, or zamba2's
+``grouped`` and ``tail``); a port model holds its weights in the same
+layout (``models.params``).  Given that tree as numpy arrays
 (``jax.tree.map(np.asarray, params)``), :func:`params_from_jax` builds a
 port model that holds the same weights, so both packages compute with
 them; :func:`params_to_jax` gives a port model's (or tree's) weights back
@@ -21,7 +21,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import params_tree
+from repro_torch.models.params import params_tree
 from repro_torch.npio import from_numpy
 from repro_torch.treepath import tree_map
 

@@ -11,9 +11,9 @@ keep the reference's (in, out) orientation, so every projection is
 ``params`` first, the weights it reads — what :meth:`CausalLM.init`
 returns (the model itself), a module from
 :func:`repro_torch.models.convert.params_from_jax`, or the reference's
-tree of tensors (:func:`params_tree`, what training updates).  Each call
-unbinds the stacked weights once into per-layer views
-(:func:`as_layers`) and runs the layers in a Python loop (``maybe_scan``
+tree of tensors (``models.params.params_tree``, what training
+updates).  Each call unbinds the stacked weights once into per-layer
+views (:func:`as_layers`) and runs the layers in a Python loop (``maybe_scan``
 with ``scan_layers=False``).  Weights are stored in ``param_dtype`` and
 cast to the compute dtype at each use, as the reference casts them inside
 its jit.  A moe layer's FFN is ``models.moe.moe_ffn``, or
@@ -31,7 +31,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (FAMILY_DENSE, FAMILY_MOE, FAMILY_VLM,
                                 ModelConfig)
-from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -39,6 +38,9 @@ from repro_torch.models import moe_a2a
 from repro_torch.models.common import (cross_entropy, dtype_of,
                                        mrope_angles, normal_init, pdtype_of,
                                        rmsnorm, rmsnorm_init, rope_angles)
+from repro_torch.models.params import (TreeModel, check_stacked,
+                                       draw_stacked, frozen, layer_list,
+                                       params_tree)
 
 
 class DecodeState(NamedTuple):
@@ -46,14 +48,8 @@ class DecodeState(NamedTuple):
     pos: torch.Tensor          # (B,) int32 next position to write
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    # a module's weights serve and take no gradients: training
-    # differentiates per-layer views of the tree (train/train_step.py)
-    return nn.Parameter(t, requires_grad=False)
-
-
 def _param_dict(d: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _frozen(v) for k, v in d.items()})
+    return nn.ParameterDict({k: frozen(v) for k, v in d.items()})
 
 
 class LayerParams(NamedTuple):
@@ -65,57 +61,29 @@ class LayerParams(NamedTuple):
     lm_head: Optional[torch.Tensor]
 
 
-def params_tree(params) -> dict:
-    """The reference's parameter tree of ``params``: a
-    :class:`CausalLM`'s own tensors in nested dicts (``layers/attn/wq``
-    stacked, (L, d, H·hd)), or a tree as it is."""
-    if not isinstance(params, nn.Module):
-        return params
-    tree = {"embedding": params.embedding,
-            "layers": {bn: dict(block)
-                       for bn, block in params.layers.items()},
-            "final_norm": dict(params.final_norm)}
-    if not params.cfg.tie_embeddings:
-        tree["lm_head"] = params.lm_head
-    return tree
-
-
 def as_layers(params) -> LayerParams:
-    """``params`` (a module or the reference's tree) as the methods read
-    it: the stacked weights unbound once into per-layer views.  A
-    :class:`LayerParams` comes back as it is."""
+    """``params`` (a module, the reference's tree, or a tree whose
+    ``layers`` are already a list of per-layer trees, as training's
+    gradient views are) as the methods read it: the stacked weights
+    unbound once into per-layer views.  A :class:`LayerParams` comes back
+    as it is."""
     if isinstance(params, LayerParams):
         return params
     tree = params_tree(params)
-    split = {bn: {k: t.unbind(0) for k, t in block.items()}
-             for bn, block in tree["layers"].items()}
-    n = len(next(iter(next(iter(split.values())).values())))
-    layers = [{bn: {k: ts[i] for k, ts in block.items()}
-               for bn, block in split.items()} for i in range(n)]
-    return LayerParams(tree["embedding"], layers, tree["final_norm"],
-                       tree.get("lm_head"))
+    return LayerParams(tree["embedding"], layer_list(tree, "layers"),
+                       tree["final_norm"], tree.get("lm_head"))
 
 
-class CausalLM(nn.Module):
-    """A dense, MoE or VLM decoder on ``device`` (default CUDA).
-    Construction allocates no weights: :meth:`init` draws them, or
-    ``models.convert.params_from_jax`` loads the reference's."""
+class CausalLM(TreeModel):
+    """A dense, MoE or VLM decoder on ``device`` (default CUDA)."""
+
+    stacked_axes = {"layers": 1}
 
     def __init__(self, cfg: ModelConfig, device=None):
-        super().__init__()
         if cfg.family not in (FAMILY_DENSE, FAMILY_MOE, FAMILY_VLM):
             raise ValueError(f"CausalLM runs the dense, moe and vlm "
                              f"families, not {cfg.family!r}")
-        self.cfg = cfg
-        self._device = resolve_device(device)
-
-    @property
-    def device(self) -> torch.device:
-        """Where the weights are (after ``init``, ``set_params`` or
-        ``.to``), else where the constructor put the model."""
-        if "embedding" in self._parameters:
-            return self.embedding.device
-        return self._device
+        super().__init__(cfg, device)
 
     # -- init ---------------------------------------------------------------
     def _layer_init(self, generator: torch.Generator) -> dict:
@@ -132,35 +100,18 @@ class CausalLM(nn.Module):
             p["mlp"] = mlp_mod.swiglu_init(generator, cfg, pdt)
         return p
 
-    def init(self, generator: torch.Generator) -> "CausalLM":
-        """Draw every weight from ``generator`` (which must live on the
-        model's device) and return the module: the ``params`` of the
-        other methods."""
-        return self.set_params(self.init_tree(generator))
-
     def init_tree(self, generator: torch.Generator) -> dict:
         """The weights :meth:`init` draws, as the reference's tree
         (:func:`params_tree`'s layout) that no module holds.  Layer ``i``
         is drawn whole before layer ``i + 1`` and written into its row of
         the stacked leaves."""
-        if generator.device.type != self.device.type:
-            raise ValueError(f"generator on {generator.device}, model on "
-                             f"{self.device}")
+        self.check_generator(generator)
         cfg = self.cfg
         pdt = pdtype_of(cfg)
         tree = {"embedding": normal_init(
             generator, (cfg.vocab_size, cfg.d_model), 0.02, pdt)}
-        layers = None
-        for i in range(cfg.num_layers):
-            lp = self._layer_init(generator)
-            if layers is None:
-                layers = {bn: {k: t.new_empty((cfg.num_layers, *t.shape))
-                               for k, t in block.items()}
-                          for bn, block in lp.items()}
-            for bn, block in lp.items():
-                for k, t in block.items():
-                    layers[bn][k][i] = t
-        tree["layers"] = layers
+        tree["layers"] = draw_stacked(cfg.num_layers,
+                                      lambda: self._layer_init(generator))
         tree["final_norm"] = rmsnorm_init(cfg.d_model, pdt, self.device)
         if not cfg.tie_embeddings:
             tree["lm_head"] = normal_init(
@@ -172,23 +123,19 @@ class CausalLM(nn.Module):
         """Take the weights of a tree in the reference's layout (per-layer
         leaves stacked on a leading ``layers`` axis), moved to the model's
         device; returns the module."""
-        n = self.cfg.num_layers
-        for bn, block in tree["layers"].items():
-            for k, t in block.items():
-                if t.shape[0] != n:
-                    raise ValueError(f"layers/{bn}/{k}: leading axis "
-                                     f"{t.shape[0]}, config has {n} layers")
+        check_stacked(tree, self.stacked_axes,
+                      {"layers": (self.cfg.num_layers,)})
 
         def dev(t):
             return t.to(self.device)
-        self.embedding = _frozen(dev(tree["embedding"]))
+        self.embedding = frozen(dev(tree["embedding"]))
         self.layers = nn.ModuleDict({
             bn: _param_dict({k: dev(v) for k, v in block.items()})
             for bn, block in tree["layers"].items()})
         self.final_norm = _param_dict({k: dev(v) for k, v in
                                        tree["final_norm"].items()})
         if not self.cfg.tie_embeddings:
-            self.lm_head = _frozen(dev(tree["lm_head"]))
+            self.lm_head = frozen(dev(tree["lm_head"]))
         return self
 
     # -- shared pieces -------------------------------------------------------

@@ -2,13 +2,13 @@
 ``repro.train.train_step``.
 
 The state is the reference's: ``params`` is the reference's parameter tree
-(per-layer weights stacked on a leading ``layers`` axis, the layout a
-``CausalLM`` holds; ``models.transformer.params_tree``), so optimizer
-state, gradients and checkpoints carry the reference's names and shapes.
-Gradients are taken by one ``backward`` through per-layer views of the
-stacked leaves; each view's gradient is added into the step's stacked
-gradient buffer as soon as autograd finishes it, so a step holds one
-gradient tree.  With ``microbatches`` > 1 each microbatch's gradient is
+(per-layer weights stacked on leading axes, the layout a model holds;
+``models.params.params_tree``), so optimizer state, gradients and
+checkpoints carry the reference's names and shapes.  Gradients are taken
+by one ``backward`` through per-layer views of the stacked leaves (the
+model's ``stacked_axes`` say which); each view's gradient is added into
+the step's stacked gradient buffer as soon as autograd finishes it, so a
+step holds one gradient tree.  With ``microbatches`` > 1 each microbatch's gradient is
 added into that buffer (float32) and the sum divided by their count, the
 reference's order.
 
@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.config import TrainConfig
 from repro_torch.core.distributed import SearchMesh, check_mesh_device
-from repro_torch.models.transformer import LayerParams
+from repro_torch.models.params import unstack
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim.grad import compressed_psum
 from repro_torch.treepath import tree_leaves, tree_map
@@ -81,18 +81,21 @@ def _grad_leaf(t: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _grad_views(t, a, depth: int):
+    """``t`` (a tree of leaves stacked on ``depth`` leading axes) as the
+    per-layer trees ``unstack`` gives, each leaf a :func:`_grad_leaf` of
+    its slot in ``a``."""
+    if depth == 0:
+        return tree_map(_grad_leaf, t, a)
+    return [_grad_views(ti, ai, depth - 1)
+            for ti, ai in zip(unstack(t), unstack(a))]
+
+
 def loss_and_grad(model, params, batch, remat: bool, acc) -> torch.Tensor:
     """``model.loss(params, batch)``, its gradient added into ``acc`` (a
     tree like ``params``).  Returns the loss (no graph)."""
-    rest = {k: tree_map(_grad_leaf, params[k], acc[k])
-            for k in params if k != "layers"}
-    layers, grads = params["layers"], acc["layers"]
-    n = tree_leaves(layers)[0].shape[0]
-    view = LayerParams(
-        rest["embedding"],
-        [tree_map(lambda t, a, i=i: _grad_leaf(t[i], a[i]), layers, grads)
-         for i in range(n)],
-        rest["final_norm"], rest.get("lm_head"))
+    view = {k: _grad_views(params[k], acc[k], model.stacked_axes.get(k, 0))
+            for k in params}
     with torch.enable_grad():
         loss = model.loss(view, batch, remat=remat)
         loss.backward()

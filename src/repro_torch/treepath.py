@@ -38,19 +38,23 @@ def keystr_simple(path) -> str:
     return "/".join(str(p) for p in path)
 
 
+# The walks are module-level functions: a nested function that calls itself
+# is a reference cycle (it holds itself through its closure), which keeps
+# what the closure holds, leaves included, alive until the collector runs.
+def _flatten(node, path, out: list) -> None:
+    if node is None:
+        return
+    if _is_node(node):
+        for k, child in _children(node):
+            _flatten(child, path + (k,), out)
+    else:
+        out.append((path, node))
+
+
 def flatten_with_path(tree) -> List[Tuple[tuple, Any]]:
     """[(path, leaf)] in JAX's leaf order."""
     out = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if _is_node(node):
-            for k, child in _children(node):
-                walk(child, path + (k,))
-        else:
-            out.append((path, node))
-    walk(tree, ())
+    _flatten(tree, (), out)
     return out
 
 
@@ -58,22 +62,24 @@ def tree_leaves(tree) -> list:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
+def _map(fn: Callable, node, others: list, path: tuple):
+    if node is None:
+        return None
+    if not _is_node(node):
+        return fn(path, node, *others)
+    kids = [_map(fn, child, [_child(o, k) for o in others], path + (k,))
+            for k, child in _children(node)]
+    if isinstance(node, dict):
+        return {k: v for (k, _), v in zip(_children(node), kids)}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*kids)
+    return type(node)(kids)
+
+
 def tree_map_with_path(fn: Callable, tree, *rest):
     """A tree of ``tree``'s structure holding ``fn(path, leaf, *others)``,
     where ``others`` are the leaves at the same path of ``rest``."""
-    def walk(node, others, path):
-        if node is None:
-            return None
-        if not _is_node(node):
-            return fn(path, node, *others)
-        kids = [walk(child, [_child(o, k) for o in others], path + (k,))
-                for k, child in _children(node)]
-        if isinstance(node, dict):
-            return {k: v for (k, _), v in zip(_children(node), kids)}
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*kids)
-        return type(node)(kids)
-    return walk(tree, list(rest), ())
+    return _map(fn, tree, list(rest), ())
 
 
 def tree_map(fn: Callable, tree, *rest):

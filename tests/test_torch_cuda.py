@@ -8,8 +8,8 @@ the α-prune and the hnsw descent on the card equal to the CPU's; the
 walker-sharded search on (1, 1) and (1, 4) meshes through every f32
 backend, and a 4-shard partitioned build, its corpus search and its engine,
 equal to the CPU's; the LMs (dense, vlm, moe: ``moe_ffn`` and its lane
-paths on (2, 4) and (1, 3) meshes), kNN-LM and the train step equal to the
-CPU's.
+paths on (2, 4) and (1, 3) meshes; ssm and hybrid, and their in-place
+decode step), kNN-LM and the train step equal to the CPU's.
 
 Every test here needs a CUDA device (the kernels are CUDA C++ with no CPU
 mode) and skips without one.  The file imports no JAX, so it also runs on a
@@ -1148,3 +1148,49 @@ def test_moe_top_k_ties_on_card(cuda_device):
     _, idx = moe.top_k(probs, 8)
     assert torch.equal(idx.cpu(), torch.tensor([77, 0, 1, 2, 3, 4, 5, 6]
                                                ).expand(4096, 8))
+
+
+# -- the ssm and hybrid families on the card --------------------------------
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_lm_on_card_equals_cpu(cuda_device, arch):
+    """The ssm and hybrid smoke models (f32) on the card: forward logits,
+    prefill and two decode steps, and the decode state, equal the CPU's
+    (1e-4)."""
+    from repro_torch.treepath import tree_leaves
+    cfg, cpu, card = _lm(arch, "float32")
+    toks = torch.from_numpy(np.random.RandomState(54).randint(
+        0, cfg.vocab_size, size=(3, 12)))
+    torch.testing.assert_close(card.forward(card, toks.cuda()).cpu(),
+                               cpu.forward(cpu, toks), rtol=1e-4, atol=1e-4)
+    lp_c, st_c = cpu.prefill(cpu, toks[:, :10], 14)
+    lp_g, st_g = card.prefill(card, toks[:, :10].cuda(), 14)
+    torch.testing.assert_close(lp_g.cpu(), lp_c, rtol=1e-4, atol=1e-4)
+    for i in (10, 11):
+        ld_c, st_c = cpu.decode_step(cpu, st_c, toks[:, i:i + 1])
+        ld_g, st_g = card.decode_step(card, st_g, toks[:, i:i + 1].cuda())
+    torch.testing.assert_close(ld_g.cpu(), ld_c, rtol=1e-4, atol=1e-4)
+    for g, c in zip(tree_leaves(st_g), tree_leaves(st_c)):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_decode_inplace_on_card(cuda_device, arch):
+    """A decode step with ``inplace=True`` on the card gives the logits
+    and state of the pure step bit for bit, writing into the state it is
+    given; the pure step leaves its input as it was."""
+    from repro_torch.treepath import tree_leaves
+    cfg, _, card = _lm(arch, "float32")
+    toks = torch.from_numpy(np.random.RandomState(55).randint(
+        0, cfg.vocab_size, size=(3, 9))).cuda()
+    _, st = card.prefill(card, toks[:, :8], 12)
+    before = [t.clone() for t in tree_leaves(st)]
+    l_pure, s_pure = card.decode_step(card, st, toks[:, 8:])
+    for a, b in zip(tree_leaves(st), before):
+        assert torch.equal(a, b)
+    l_in, s_in = card.decode_step(card, st, toks[:, 8:], inplace=True)
+    assert torch.equal(l_in, l_pure)
+    for a, b, c in zip(tree_leaves(s_in), tree_leaves(s_pure),
+                       tree_leaves(st)):
+        assert torch.equal(a, b)
+        assert a is c or a.dim() == 1          # pos is a new tensor
