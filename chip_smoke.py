@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the port's Speed-ANN search, serving and build paths, and its LMs
-(dense with kNN-LM retrieval and training; the moe, ssm and hybrid
+(dense with kNN-LM retrieval and training; the moe, ssm, hybrid and encdec
 families), on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--profile-src DIR]
@@ -120,7 +120,7 @@ Phases, one JSON line each:
                the same clusters, each found at distance 0; delete of 1% of
                the ids (chosen by --seed), none returned, recall@10 against
                the tombstone-aware exact still above the fixture's; an
-               hnsw build at N_HNSW = 100,000, its bfis
+               hnsw build at N_HNSW = 50,000, its bfis
                (through the upper-level descent) on 64 queries equal in
                ids, dists and the 8 counters to the CPU search of the saved
                index;
@@ -213,7 +213,22 @@ Phases, one JSON line each:
                check), and a replay in f32 compute on 8 × 64 + 8 steps
                (logits within 1e-4 of each row's largest, tokens the
                teacher-forced argmax).  The kernels line's rows gain
-               ``launches_ssm`` (0).
+               ``launches_ssm`` (0);
+ 19. encdec  — whisper-large-v3 (random weights and N(0, 1) frames from
+               --seed; after phase 18 has freed its models): at full width
+               and 2 + 2 layers (f32, 2 rows × 1,500 frames × 64 tokens)
+               forward logits (1e-4), the loss and every gradient leaf
+               (1e-4 of the leaf's largest) against the CPU's, beside the
+               two devices' sinusoidal tables; at full width and depth
+               (32 + 32 layers, f32 storage, bf16 compute) on 8 rows of
+               1,500 frames: the prompts of 64 tokens through ServeEngine
+               with the model bound to its frames, 32 greedy steps
+               (prefill and encode ms, decode ms beside their bounds,
+               tokens/s, peak memory, a profiled decode step and prefill,
+               no kernel launched), replayed against the teacher-forced
+               forward (phase 15's check), and a replay in f32 compute on
+               8 × 16 + 8 steps (phase 18's check).  The kernels line's
+               rows gain ``launches_encdec`` (0).
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -263,8 +278,11 @@ BACKEND_KERNEL = {"ref": None, "rowgather": "l2dist_rowgather",
                   "topl_merge": "sort_pairs"}
 SPIN_CYCLES = 2_000_000       # ~1 ms of device spin at the H100's clock
 BIG_B = 65_573                # query rows past a grid's y limit (65,535)
-N_BUILD = 1_000_000           # points the construct phase builds
-N_HNSW = 100_000              # points of its hnsw build (two builds inside)
+# points the construct phase builds, and its hnsw build (two builds
+# inside): 1M and 100k until phase 19 came (the whole smoke must end within
+# 1200 s; the 1M build took 109-145 s on one H100, the host setting it)
+N_BUILD = 500_000
+N_HNSW = 50_000
 BUILD_BATCH = 8192            # the builds' candidate-search tile
 # the α of the construct phase's builds.  On this data (1000 equidistant
 # Gaussian clusters, far more members than a row's 32 slots) the default
@@ -298,7 +316,7 @@ KNNLM_QUERIES, KNNLM_QUERY_LEN = 64, 256   # held-out prompts
 KNNLM_CPU_QUERIES = 8         # prompts held to the CPU's knnlm_logits
 KNNLM_WALKERS = 8
 KNNLM_LAM, KNNLM_TAU = 0.25, 10.0
-KNNLM_REPS = 5                # timed kNN-LM calls (p50)
+KNNLM_REPS = 3                # timed kNN-LM calls (p50; 5 until phase 19)
 # phase 16 (train): qwen2.5-3b trained on the card.  At full depth: one
 # warm step, then TRAIN_STEPS timed steps of TRAIN_BATCH rows × TRAIN_SEQ
 # tokens (TokenStream rows of TRAIN_SEQ + 1); at 2 layers: the Trainer's
@@ -339,6 +357,17 @@ SSM_PROMPTS, SSM_PROMPT_LEN, SSM_STEPS = 8, 512, 32
 # and the replay in float32 compute on SSM_REPLAY_LEN-token prompts,
 # SSM_REPLAY_STEPS steps (72 tokens: chunks of 8)
 SSM_REPLAY_LEN, SSM_REPLAY_STEPS = 64, 8
+# phase 19 (encdec): whisper-large-v3 at full width.  Card vs CPU at
+# WHISPER_CHECK_DEPTH encoder and decoder layers (f32, WHISPER_CHECK_ROWS
+# rows of encoder_ctx = 1,500 frames and WHISPER_CHECK_SEQ tokens); at full
+# depth (f32 storage, bf16 compute) WHISPER_PROMPTS rows of frames and
+# prompts of WHISPER_PROMPT_LEN tokens, WHISPER_STEPS greedy steps; the
+# replay in f32 compute on WHISPER_REPLAY_LEN-token prompts,
+# WHISPER_REPLAY_STEPS steps
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_CHECK_DEPTH, WHISPER_CHECK_ROWS, WHISPER_CHECK_SEQ = 2, 2, 64
+WHISPER_PROMPTS, WHISPER_PROMPT_LEN, WHISPER_STEPS = 8, 64, 32
+WHISPER_REPLAY_LEN, WHISPER_REPLAY_STEPS = 16, 8
 
 
 def knnlm_gather_shapes(n_keys: int, build_batch: int = BUILD_BATCH,
@@ -1249,8 +1278,9 @@ SERVE_SIZES = (1, 3, 17, 64, 100)   # engine requests; 100 is two chunks
 SERVE_REPS = {1: 100, 2: 20, 4: 20, 8: 20, 16: 10, 32: 10, 64: 10}
 TAIL_MIN = 100                      # fewer requests report no p99
 # single queries through the hedging router, from 4 client threads (64
-# until phase 17 came: 75 s of the serve phase, every query hedged)
-ROUTER_QUERIES = 32
+# until phase 17 came: 75 s of the serve phase, every query hedged; 32
+# until phase 19 came: 35-51 s)
+ROUTER_QUERIES = 16
 COALESCE_PASSES = 4                 # the 264 queries, offered this often
 
 
@@ -1604,12 +1634,14 @@ def serve_phase(index, qindex, queries, seed, smi):
 
 SHARD_MESHES = ((1, 1), (1, 4), (2, 4))    # walker meshes: (data, model)
 SHARD_BACKENDS = ("rowgather", "dma", "dedup_gather")
-SHARD_REPS = 5                      # timed batches of 64 per mesh
+SHARD_REPS = 3                      # timed batches of 64 per mesh (5
+                                    # until phase 19 came)
 SHARD_CPU_QUERIES = 8               # queries held to the CPU run
 N_SHARDS = 4                        # corpus shards, one per model position
 # vectors the corpus path partitions: half the index since phase 16 (the
-# whole smoke must end within 1200 s; the 1M partitioned build took 115 s)
-N_CORPUS = N // 2
+# whole smoke must end within 1200 s; the 1M partitioned build took 115 s),
+# a quarter since phase 19 (the 500k build took 81 s)
+N_CORPUS = N // 4
 # the corpus engine's best-first walker (M = 1) takes a step per expanded
 # vertex: the step budget of the reference's own multi-device check
 CORPUS_MAX_STEPS = 384
@@ -1788,12 +1820,15 @@ def sharded_phase(index, base, queries, gt, smi):
     t0 = time.perf_counter()
     path_launches = {}
     walker = walker_meshes(index, queries, gt, path_launches)
+    t_walker = time.perf_counter() - t0
     corpus = corpus_mesh(base, queries, path_launches)
     check_launches(path_launches)
     torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
     return ({"phase": "sharded", "walker": walker, "corpus": corpus,
-             "seconds": time.perf_counter() - t0, "card": smi},
-            path_launches)
+             "seconds": seconds, "part_seconds": {
+                 "walker": t_walker, "corpus": seconds - t_walker},
+             "card": smi}, path_launches)
 
 
 def smoke_params():
@@ -2204,6 +2239,39 @@ def engine_timings(model, params, prompts, steps: int):
             gen, picked, state)
 
 
+class FramesBound:
+    """An encdec model whose ``forward`` and ``prefill`` take the frames
+    given here before the tokens, so that the token-only callers
+    (``ServeEngine``, :func:`engine_timings`, :func:`lm_replay`,
+    :func:`f32_replay`) drive it."""
+
+    def __init__(self, model, frames):
+        self.model, self.frames, self.cfg = model, frames, model.cfg
+
+    @property
+    def device(self):
+        return self.model.device
+
+    def forward(self, params, tokens, remat: bool = True):
+        return self.model.forward(params, self.frames, tokens, remat=remat)
+
+    def prefill(self, params, tokens, s_max: int):
+        return self.model.prefill(params, self.frames, tokens, s_max)
+
+    def decode_step(self, params, state, token, inplace: bool = False):
+        return self.model.decode_step(params, state, token, inplace=inplace)
+
+
+def _retyped(model, dtype: str):
+    """``model`` built again for compute ``dtype`` (the same params
+    serve it); a :class:`FramesBound` model stays bound to its frames."""
+    import dataclasses
+    from repro_torch.models import build_model
+    if isinstance(model, FramesBound):
+        return FramesBound(_retyped(model.model, dtype), model.frames)
+    return build_model(dataclasses.replace(model.cfg, dtype=dtype))
+
+
 def _logits_of(out):
     """A model's forward logits: a ``CausalLM`` returns (logits, aux), the
     ssm and hybrid models their logits."""
@@ -2218,18 +2286,15 @@ def lm_replay(model, params, prompts, gen, picked):
     Each token is that forward's argmax wherever its top-2 margin exceeds
     twice the replay's largest |difference| in its row (there the two
     argmaxes must agree)."""
-    import dataclasses
     import torch
-    from repro_torch.models import build_model
 
-    cfg = model.cfg
     plen, steps = prompts.shape[1], gen.shape[1]
     with torch.inference_mode():
         seq = torch.cat([prompts, gen.long()], 1)
         window = slice(plen - 1, plen - 1 + steps)
         tf = _logits_of(model.forward(params, seq))[:, window].float()
-        f32 = _logits_of(build_model(dataclasses.replace(
-            cfg, dtype="float32")).forward(params, seq))[:, window]
+        f32 = _logits_of(_retyped(model, "float32").forward(params, seq))[
+            :, window]
     pair, replay_err, tf_err = bf16_pair_err(picked, tf, f32)
     del f32
     if pair > max(replay_err, tf_err):
@@ -3451,6 +3516,11 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def _numel(tree) -> int:
+    from repro_torch.treepath import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
 def ssm_bounds(cfg, params, b: int, plen: int, state):
     """The least time of a decode step of ``b`` tokens and of a prefill of
     ``b`` × ``plen`` tokens.  Bytes: every weight once (the embedding is
@@ -3515,28 +3585,23 @@ def ssm_bounds(cfg, params, b: int, plen: int, state):
     return out
 
 
-def ssm_replay(cfg, params, seed: int):
-    """Phase 18 (c), the replay in float32 compute (the f32 weights as
-    stored, where the bf16 replay's rounding leaves most tokens near a
-    tie): ServeEngine's greedy tokens on SSM_PROMPTS prompts of
-    SSM_REPLAY_LEN tokens, SSM_REPLAY_STEPS steps; the prefill and decode
-    steps replayed on them pick the same tokens, and their logits equal
-    the teacher-forced ``forward``'s over prompt + generated tokens within
-    1e-4 of the row's largest |logit| (as phases 16–18 hold a gradient
-    leaf to 1e-4 of its largest: the decode's recurrence and the prefill's
-    chunked form round differently through 64–81 positions), whose argmax
-    each token is wherever the top-2 margin exceeds twice the row's
-    replay error."""
-    import dataclasses
+def f32_replay(model, params, prompts, steps: int):
+    """The replay in float32 compute (``model`` computes in f32 on the
+    weights as stored, where a bf16 replay's rounding leaves most tokens
+    near a tie): ServeEngine's greedy tokens on ``prompts``, ``steps``
+    steps; the prefill and decode steps replayed on them pick the same
+    tokens, and their logits equal the teacher-forced ``forward``'s over
+    prompt + generated tokens within 1e-4 of the row's largest |logit| (as
+    phases 16–19 hold a gradient leaf to 1e-4 of its largest: a decode and
+    a forward round differently through the layers), whose argmax each
+    token is wherever the top-2 margin exceeds twice the row's replay
+    error."""
     import torch
-    from repro_torch.models import build_model
     from repro_torch.serve import ServeEngine
 
-    f32 = dataclasses.replace(cfg, dtype="float32")
-    model = build_model(f32)
-    b, plen, steps = SSM_PROMPTS, SSM_REPLAY_LEN, SSM_REPLAY_STEPS
+    name = model.cfg.name
+    b, plen = prompts.shape
     s_max = plen + steps
-    prompts = _stream_batch(f32, b, plen, seed + 37, 0, "cuda")["tokens"]
     gen, _ = ServeEngine(model, params, s_max=s_max).generate(prompts, steps)
     gen = gen.long()
     with torch.inference_mode():
@@ -3547,15 +3612,15 @@ def ssm_replay(cfg, params, seed: int):
                                               gen[:, t:t + 1], inplace=True)
             picked.append(logits[:, 0].float())
         picked = torch.stack(picked, dim=1)
-        tf = model.forward(params, torch.cat([prompts, gen], 1))[
+        tf = _logits_of(model.forward(params, torch.cat([prompts, gen], 1)))[
             :, plen - 1:plen - 1 + steps].float()
     if not torch.equal(gen, picked.argmax(-1)):
-        raise AssertionError(f"{cfg.name} replay: the replayed steps pick "
+        raise AssertionError(f"{name} replay: the replayed steps pick "
                              f"other tokens than generate")
     err = (picked - tf).abs()
     scale = tf.abs().amax(-1, keepdim=True)                  # (B, steps, 1)
     if bool((err > 1e-4 * scale).any()):
-        raise AssertionError(f"{cfg.name} replay: decode logits "
+        raise AssertionError(f"{name} replay: decode logits "
                              f"{float(err.max())} from the forward's "
                              f"(rows' largest |logit| from "
                              f"{float(scale.min())})")
@@ -3563,7 +3628,7 @@ def ssm_replay(cfg, params, seed: int):
     checked = top2[..., 0] - top2[..., 1] > 2 * err.amax(-1)
     agree = gen == tf.argmax(-1)
     if not bool(agree[checked].all()):
-        raise AssertionError(f"{cfg.name} replay: "
+        raise AssertionError(f"{name} replay: "
                              f"{int((~agree & checked).sum())} greedy tokens "
                              f"differ from the teacher-forced argmax")
     del state, tf, picked, model
@@ -3575,6 +3640,20 @@ def ssm_replay(cfg, params, seed: int):
             "tokens_checked": int(checked.sum()),
             "tokens_equal_teacher_argmax": int(agree.sum()),
             "tolerance": "1e-4 of the row's largest |logit|"}
+
+
+def ssm_replay(cfg, params, seed: int):
+    """Phase 18 (c): :func:`f32_replay` on SSM_PROMPTS prompts of
+    SSM_REPLAY_LEN tokens, SSM_REPLAY_STEPS steps (the decode's recurrence
+    and the prefill's chunked form round differently through 64–81
+    positions)."""
+    import dataclasses
+    from repro_torch.models import build_model
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    prompts = _stream_batch(f32, SSM_PROMPTS, SSM_REPLAY_LEN, seed + 37, 0,
+                            "cuda")["tokens"]
+    return f32_replay(build_model(f32), params, prompts, SSM_REPLAY_STEPS)
 
 
 def ssm_serve(cfg, seed: int):
@@ -3656,6 +3735,227 @@ def ssm_phase(seed: int, smi):
         one["full"], path_launches[f"ssm-{arch}/ref"] = ssm_serve(cfg, seed)
         one["full"]["seconds"] = time.perf_counter() - t0
         out[arch] = one
+    check_launches(path_launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, path_launches
+
+
+def whisper_card_vs_cpu(cfg, seed: int):
+    """Phase 19 (a): ``cfg`` at full width and WHISPER_CHECK_DEPTH encoder
+    and decoder layers, f32, WHISPER_CHECK_ROWS rows of encoder_ctx N(0, 1)
+    frames and WHISPER_CHECK_SEQ tokens: the card's forward logits within
+    rtol = atol = 1e-4 of the CPU's, the loss within 1e-4 relative and
+    every gradient leaf within 1e-4 of its largest magnitude (phases
+    16–18's bars).  The weights are drawn on the card and copied to the
+    CPU.  Beside them, the two devices' sinusoidal tables (the encoder's
+    positions: an f32 angle near 1,400 rad has an ulp of 1.2e-4)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import sinusoidal_positions
+    from repro_torch.train.train_step import _zeros, loss_and_grad
+    from repro_torch.treepath import tree_map
+
+    depth = WHISPER_CHECK_DEPTH
+    small = dataclasses.replace(cfg, num_layers=depth, encoder_layers=depth,
+                                dtype="float32")
+    m_card, m_cpu = build_model(small), build_model(small, device="cpu")
+    card = m_card.init_tree(torch.Generator(device="cuda").manual_seed(seed))
+    cpu = tree_map(lambda t: t.cpu(), card)
+    batch = _stream_batch(small, WHISPER_CHECK_ROWS, WHISPER_CHECK_SEQ,
+                          seed + 41, 0, "cpu")
+    batch["frames"] = torch.randn(
+        (WHISPER_CHECK_ROWS, cfg.encoder_ctx, cfg.d_model),
+        generator=torch.Generator().manual_seed(seed + 43))
+    batch_g = {k: v.cuda() for k, v in batch.items()}
+    table = (sinusoidal_positions(cfg.encoder_ctx, cfg.d_model, "cuda").cpu()
+             - sinusoidal_positions(cfg.encoder_ctx, cfg.d_model, "cpu"))
+    with torch.inference_mode():
+        want = m_cpu.forward(cpu, batch["frames"], batch["tokens"])
+        got = m_card.forward(card, batch_g["frames"],
+                             batch_g["tokens"]).cpu()
+    logit_err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               msg=lambda m: f"{cfg.name} logits, card vs "
+                               f"CPU: {m}")
+    del want, got
+    g_cpu, g_card = _zeros(cpu), _zeros(card)
+    loss_cpu = float(loss_and_grad(m_cpu, cpu, batch, True, g_cpu))
+    loss_card = float(loss_and_grad(m_card, card, batch_g, True, g_card))
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = max((float((a.cpu() - b).abs().max() / b.abs().max()), k)
+                for (k, a), (_, b) in zip(_leaf_items(g_card),
+                                          _leaf_items(g_cpu)))
+    if rel > 1e-4 or worst[0] > 1e-4:
+        raise AssertionError(f"{cfg.name} train card vs CPU: loss {rel}, "
+                             f"gradient {worst}")
+    n_leaves = len(_leaf_items(g_card))
+    del card, cpu, g_cpu, g_card
+    torch.cuda.empty_cache()
+    return {"encoder_layers": depth, "decoder_layers": depth,
+            "rows": WHISPER_CHECK_ROWS, "frames": cfg.encoder_ctx,
+            "tokens": WHISPER_CHECK_SEQ,
+            "sinusoidal_max_abs_card_cpu": float(table.abs().max()),
+            "sinusoidal_entries_differing": int((table != 0).sum()),
+            "max_abs_logit_err": logit_err, "loss": loss_card,
+            "loss_rel_err": rel, "max_grad_err_rel_to_leaf_max": worst[0],
+            "worst_leaf": worst[1], "gradient_leaves": n_leaves,
+            "tolerance": {"logits": 1e-4, "loss_grads": 1e-4}}
+
+
+def whisper_bounds(cfg, params, b: int, plen: int, state):
+    """The least time of a prefill of ``b`` rows (encoder_ctx frames and
+    ``plen`` tokens each) and of a decode step of ``b`` tokens.  Prefill,
+    by operations: the bf16 products (the encoder's projections and MLPs
+    over b·encoder_ctx frames; the decoder's projections and MLPs over
+    b·plen tokens; each layer's cross K and V of the encoder states, once;
+    the head at the last position) at the bf16 peak, plus attention's two
+    products (f32 in the port: the encoder's over all frame pairs, the
+    decoder's over its causal pairs and over the frames) at the f32 peak,
+    one after the other.  Decode, by bytes: the decoder's weights but the
+    cross K/V projections (the state holds their output), the embedding
+    (the tied head, all of it), the self caches and the cross K/V read."""
+    from repro_torch.models.params import params_tree
+
+    tree = params_tree(params)
+    L, Le, d, f = cfg.num_layers, cfg.encoder_layers, cfg.d_model, cfg.d_ff
+    e_ctx, hd = cfg.encoder_ctx, cfg.resolved_head_dim
+    q_o = 2 * d * cfg.num_heads * hd               # wq and wo, in × out
+    k_v = 2 * d * cfg.num_kv_heads * hd
+    t_enc, t_dec = b * e_ctx, b * plen
+    enc_bf16 = Le * 2 * t_enc * (q_o + k_v + 2 * d * f)
+    dec_bf16 = L * 2 * (t_dec * (2 * q_o + k_v + 2 * d * f) + t_enc * k_v)
+    head = 2 * b * d * cfg.vocab_size
+    bf16 = enc_bf16 + dec_bf16 + head
+    heads_hd = cfg.num_heads * hd
+    f32 = (Le * 4 * b * heads_hd * e_ctx * e_ctx
+           + L * 4 * b * heads_hd * (plen * plen // 2 + plen * e_ctx))
+    dec = tree["dec_layers"]
+    kv_proj = {k: t for k, t in dec["cross"].items() if k[:2] in ("wk", "wv")}
+    dec_w = _nbytes(dec) - _nbytes(kv_proj)
+    emb = _nbytes(tree["embedding"]) + _nbytes(tree["dec_norm"])
+    caches = _nbytes(state.self_caches)
+    cross_kv = _nbytes([state.cross_k, state.cross_v])
+    dec_bytes = dec_w + emb + caches + cross_kv
+    w_bytes = _nbytes(tree)
+    out = {"bytes": {"weights": w_bytes, "decoder_weights_read": dec_w,
+                     "embedding": emb, "self_caches": caches,
+                     "cross_kv": cross_kv, "decode": dec_bytes},
+           "prefill_flops": {"bf16": bf16, "encoder_bf16": enc_bf16,
+                             "f32": f32}}
+    dec_ops = 2 * b * (_numel(dec) - _numel(kv_proj)
+                       + _numel(tree["embedding"])) / BF16_FLOP_PER_S * 1e3
+    ops_ms = (bf16 / BF16_FLOP_PER_S + f32 / F32_FLOP_PER_S) * 1e3
+    for name, nbytes, ms_ops in (("decode", dec_bytes, dec_ops),
+                                 ("prefill", w_bytes, ops_ms)):
+        ms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ms_ops}
+        by = max(ms, key=ms.get)
+        out[name] = {"bound_ms": ms[by], "bound_by": by,
+                     "bytes_ms": ms["bytes"],
+                     "operations_ms": ms["operations"]}
+    out["prefill"]["bf16_ms"] = bf16 / BF16_FLOP_PER_S * 1e3
+    out["prefill"]["f32_ms"] = f32 / F32_FLOP_PER_S * 1e3
+    out["prefill"]["all_at_bf16_peak_ms"] = (bf16 + f32) / BF16_FLOP_PER_S \
+        * 1e3
+    return out
+
+
+def whisper_serve(cfg, seed: int):
+    """Phase 19 (b): ``cfg`` at full width and depth, f32 storage and bf16
+    compute, random weights and N(0, 1) frames (WHISPER_PROMPTS, encoder_ctx,
+    d_model) from ``seed``: the model bound to its frames
+    (:class:`FramesBound`) through :func:`engine_timings` on prompts of
+    WHISPER_PROMPT_LEN tokens, WHISPER_STEPS greedy steps (its launches of
+    the six kernels counted: none), 3 timed ``encode`` calls, the replay
+    against the teacher-forced forward (:func:`lm_replay`), the bounds
+    (:func:`whisper_bounds`), one profiled decode step and prefill, and
+    the replay in f32 compute (:func:`f32_replay`) on WHISPER_REPLAY_LEN
+    tokens, WHISPER_REPLAY_STEPS steps.  Returns (facts, launches)."""
+    import torch
+    from repro_torch.models import build_model
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params, init_ms = _synced_ms(
+        model.init, torch.Generator(device="cuda").manual_seed(seed))
+    b, plen, steps = WHISPER_PROMPTS, WHISPER_PROMPT_LEN, WHISPER_STEPS
+    frames = torch.randn(
+        (b, cfg.encoder_ctx, cfg.d_model), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed + 53))
+    out = {"model": {
+        "family": cfg.family, "encoder_layers": cfg.encoder_layers,
+        "decoder_layers": cfg.num_layers, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "d_ff": cfg.d_ff,
+        "vocab_size": cfg.vocab_size, "encoder_ctx": cfg.encoder_ctx,
+        "params": sum(p.numel() for p in params.parameters()),
+        "param_count": cfg.param_count(),
+        "param_bytes": _nbytes(list(params.parameters())),
+        "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+        "init_ms": init_ms, "peak_bytes": torch.cuda.max_memory_allocated()}}
+    bound = FramesBound(model, frames)
+    prompts = _stream_batch(cfg, b, plen, seed + 7, 0, "cuda")["tokens"]
+    (facts, gen, picked, state), launches = counted(
+        engine_timings, bound, params, prompts, steps)
+    if not (bool(torch.isfinite(picked).all())
+            and 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size):
+        raise AssertionError(f"{cfg.name} ServeEngine: non-finite logits or "
+                             f"tokens out of the vocabulary")
+    enc_ms = []
+    with torch.inference_mode():
+        for _ in range(3):
+            enc, ms = _synced_ms(model.encode, params, frames)
+            enc_ms.append(ms)
+    if enc.shape != frames.shape or not bool(torch.isfinite(enc).all()):
+        raise AssertionError(f"{cfg.name} encode: {tuple(enc.shape)} or "
+                             f"non-finite states")
+    del enc
+    facts["encode_ms"] = enc_ms
+    facts["encode_p50_ms"] = float(np.median(enc_ms))
+    facts.update(lm_replay(bound, params, prompts, gen, picked))
+    del picked
+    facts.update(whisper_bounds(cfg, params, b, plen, state))
+    tok = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+    st = [state._replace(pos=state.pos - steps)]
+
+    def decode():
+        with torch.inference_mode():
+            st[0] = model.decode_step(params, st[0], tok, inplace=True)[1]
+
+    def prefill():
+        with torch.inference_mode():
+            bound.prefill(params, prompts, plen + steps)
+    facts["profile_decode_step"] = profile_call(decode, None)
+    facts["profile_prefill"] = profile_call(prefill, None)
+    del st, state
+    out["engine"] = facts
+    replay = _retyped(bound, "float32")
+    out["replay_f32"] = f32_replay(
+        replay, params, prompts[:, :WHISPER_REPLAY_LEN], WHISPER_REPLAY_STEPS)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model, params, bound, replay, frames
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def encdec_phase(seed: int, smi):
+    """Phase 19: the encdec family on the card, whisper-large-v3.  Returns
+    (the phase's line, its path launches)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "encdec", "card": smi, "arch": WHISPER_ARCH,
+           "allocated_bytes_at_start": torch.cuda.memory_allocated()}
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = whisper_card_vs_cpu(cfg, seed)
+    out["card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["full"], launches = whisper_serve(cfg, seed)
+    out["full"]["seconds"] = time.perf_counter() - t0
+    path_launches = {"encdec/ref": launches}
     check_launches(path_launches)
     out["seconds"] = time.perf_counter() - t_phase
     return out, path_launches
@@ -3888,6 +4188,11 @@ def main() -> int:
         # nor do the ssm and hybrid paths
         row["launches_ssm"] = sum(c[row["name"]]
                                   for c in ssm_launches.values())
+    encdec, encdec_launches = encdec_phase(args.seed, smi)
+    emit(encdec)
+    for row in rows:
+        # nor does the encdec path
+        row["launches_encdec"] = encdec_launches["encdec/ref"][row["name"]]
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

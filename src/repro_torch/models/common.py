@@ -1,5 +1,5 @@
-"""Shared model components: norms, rotary embeddings (incl. M-RoPE),
-initializers.  Port of ``repro.models.common``: the same functional (init,
+"""Shared model components: norms, rotary and sinusoidal position
+embeddings (incl. M-RoPE), initializers.  Port of ``repro.models.common``: the same functional (init,
 apply) pairs, where a layer's params are a mapping of tensors (a
 ``nn.ParameterDict`` inside a model).  Every apply function computes in
 float32 inside and casts back to its input's dtype exactly where the
@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -139,3 +140,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (n, d) f32 on ``device``
+    (default CUDA).  The reference's own f32 arithmetic; at whisper's
+    (1500, 1280) an angle near 1,400 rad has an f32 ulp of 1.2e-4, so
+    torch's and XLA's ``pow``/``sin``/``cos`` leave up to 3.1e-5 between
+    the two tables (ROADMAP.md §3)."""
+    dev = resolve_device(device)
+    pos = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=dev)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

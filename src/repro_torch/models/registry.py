@@ -8,9 +8,9 @@
     decode_step(params, state, token) -> (logits, decode_state)
     init_decode_state(batch, s_max) -> decode_state
 
-The dense, moe and vlm families are ported (``CausalLM``), the ssm family
-(``MambaLM``) and the hybrid family (``Zamba2Model``); the encdec family
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+Every family is ported: dense, moe and vlm (``CausalLM``), ssm
+(``MambaLM``), hybrid (``Zamba2Model``) and encdec (``WhisperModel``,
+whose ``forward`` and ``prefill`` take the frames before the tokens).
 """
 from __future__ import annotations
 
@@ -19,11 +19,8 @@ from repro_torch.config import (FAMILY_DENSE, FAMILY_ENCDEC, FAMILY_HYBRID,
                                 ModelConfig)
 from repro_torch.models.mamba_lm import MambaLM
 from repro_torch.models.transformer import CausalLM
+from repro_torch.models.whisper import WhisperModel
 from repro_torch.models.zamba2 import Zamba2Model
-
-_NOT_PORTED = {
-    FAMILY_ENCDEC: "the encdec family (models/whisper.py)",
-}
 
 
 def build_model(cfg: ModelConfig, device=None):
@@ -34,7 +31,6 @@ def build_model(cfg: ModelConfig, device=None):
         return MambaLM(cfg, device=device)
     if cfg.family == FAMILY_HYBRID:
         return Zamba2Model(cfg, device=device)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{_NOT_PORTED[cfg.family]} is not ported "
-                                  f"yet: ROADMAP.md §1 item 6")
+    if cfg.family == FAMILY_ENCDEC:
+        return WhisperModel(cfg, device=device)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -8,8 +8,8 @@ Responsibilities:
   * data pipeline resumption (the step-seeded synthetic stream restarts
     exactly).
 
-The reference's elastic restart onto another mesh waits for the port of
-``sharding.py`` (ROADMAP.md §1 item 6).  A step updates the state in
+The reference's elastic restart onto another mesh waits for a mesh over
+several cards (ROADMAP.md §1 item 8).  A step updates the state in
 place: the trainer owns it, and a failed step's state is replaced by the
 restored one.
 """

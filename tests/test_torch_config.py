@@ -117,7 +117,8 @@ LM_MODULES = ["config.py", "configs/__init__.py", "configs/qwen2_5_3b.py",
               "models/transformer.py", "models/registry.py",
               "models/convert.py", "data/tokens.py", "data/vectors.py",
               "serve/engine.py", "serve/knnlm.py", "launch/serve.py",
-              "sharding.py", "models/moe.py", "models/moe_a2a.py"]
+              "sharding.py", "models/moe.py", "models/moe_a2a.py",
+              "models/whisper.py", "configs/shapes.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -8,8 +8,8 @@ the α-prune and the hnsw descent on the card equal to the CPU's; the
 walker-sharded search on (1, 1) and (1, 4) meshes through every f32
 backend, and a 4-shard partitioned build, its corpus search and its engine,
 equal to the CPU's; the LMs (dense, vlm, moe: ``moe_ffn`` and its lane
-paths on (2, 4) and (1, 3) meshes; ssm and hybrid, and their in-place
-decode step), kNN-LM and the train step equal to the CPU's.
+paths on (2, 4) and (1, 3) meshes; ssm, hybrid and encdec, and their
+in-place decode step), kNN-LM and the train step equal to the CPU's.
 
 Every test here needs a CUDA device (the kernels are CUDA C++ with no CPU
 mode) and skips without one.  The file imports no JAX, so it also runs on a
@@ -1184,6 +1184,61 @@ def test_ssm_decode_inplace_on_card(cuda_device, arch):
     toks = torch.from_numpy(np.random.RandomState(55).randint(
         0, cfg.vocab_size, size=(3, 9))).cuda()
     _, st = card.prefill(card, toks[:, :8], 12)
+    before = [t.clone() for t in tree_leaves(st)]
+    l_pure, s_pure = card.decode_step(card, st, toks[:, 8:])
+    for a, b in zip(tree_leaves(st), before):
+        assert torch.equal(a, b)
+    l_in, s_in = card.decode_step(card, st, toks[:, 8:], inplace=True)
+    assert torch.equal(l_in, l_pure)
+    for a, b, c in zip(tree_leaves(s_in), tree_leaves(s_pure),
+                       tree_leaves(st)):
+        assert torch.equal(a, b)
+        assert a is c or a.dim() == 1          # pos is a new tensor
+
+
+# -- the encdec family on the card -------------------------------------------
+
+def _whisper_inputs(cfg, seed, rows, seq):
+    rs = np.random.RandomState(seed)
+    frames = torch.from_numpy(rs.normal(size=(rows, cfg.encoder_ctx,
+                                              cfg.d_model)).astype(np.float32))
+    return frames, torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                               size=(rows, seq)))
+
+
+def test_whisper_on_card_equals_cpu(cuda_device):
+    """The whisper smoke model (f32) on the card: encoder states, forward
+    logits, prefill and two decode steps, and the decode state (self
+    caches, cross K/V, positions), equal the CPU's (1e-4)."""
+    from repro_torch.treepath import tree_leaves
+    cfg, cpu, card = _lm("whisper-large-v3", "float32")
+    frames, toks = _whisper_inputs(cfg, 56, 3, 12)
+    fg, tg = frames.cuda(), toks.cuda()
+    torch.testing.assert_close(card.encode(card, fg).cpu(),
+                               cpu.encode(cpu, frames), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(card.forward(card, fg, tg).cpu(),
+                               cpu.forward(cpu, frames, toks), rtol=1e-4,
+                               atol=1e-4)
+    lp_c, st_c = cpu.prefill(cpu, frames, toks[:, :10], 14)
+    lp_g, st_g = card.prefill(card, fg, tg[:, :10], 14)
+    torch.testing.assert_close(lp_g.cpu(), lp_c, rtol=1e-4, atol=1e-4)
+    for i in (10, 11):
+        ld_c, st_c = cpu.decode_step(cpu, st_c, toks[:, i:i + 1])
+        ld_g, st_g = card.decode_step(card, st_g, tg[:, i:i + 1])
+    torch.testing.assert_close(ld_g.cpu(), ld_c, rtol=1e-4, atol=1e-4)
+    for g, c in zip(tree_leaves(st_g), tree_leaves(st_c)):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+def test_whisper_decode_inplace_on_card(cuda_device):
+    """A whisper decode step with ``inplace=True`` on the card gives the
+    logits and state of the pure step bit for bit, writing into the self
+    caches it is given; the pure step leaves its input as it was."""
+    from repro_torch.treepath import tree_leaves
+    cfg, _, card = _lm("whisper-large-v3", "float32")
+    frames, toks = _whisper_inputs(cfg, 57, 3, 9)
+    toks = toks.cuda()
+    _, st = card.prefill(card, frames.cuda(), toks[:, :8], 12)
     before = [t.clone() for t in tree_leaves(st)]
     l_pure, s_pure = card.decode_step(card, st, toks[:, 8:])
     for a, b in zip(tree_leaves(st), before):

@@ -5,8 +5,8 @@ against the reference, on the CPU.
   ``repro.config``'s for all ten architectures.
 * ``_batch_at``/``synthetic_batches`` and ``make_vector_dataset`` give the
   reference's arrays for the same seed.
-* ``build_model`` builds every ported family and raises
-  ``NotImplementedError`` for the one that is not (encdec).
+* ``build_model`` builds every family (the encdec family's forward takes
+  frames).
 * ``ServeEngine.generate``: greedy tokens equal the JAX engine's in f32,
   also past the end of the cache; a sampled run repeats under one seed.
 * ``decode_step`` is pure as the reference's: branches from one state
@@ -42,9 +42,6 @@ from repro_torch.launch import serve as t_launch
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import ServeEngine
-
-NOT_PORTED = ["whisper-large-v3"]
-
 
 # ---------------------------------------------------------------------------
 # configs
@@ -123,25 +120,25 @@ def test_make_vector_dataset_matches(name, dim):
 # registry
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_build_model_raises_for_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 6"):
-        build_model(get_smoke_config(arch), device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "llama3.2-3b", "yi-9b",
                                   "mistral-large-123b", "qwen2-vl-7b",
                                   "qwen3-moe-30b-a3b", "grok-1-314b",
-                                  "mamba2-2.7b", "zamba2-7b"])
+                                  "mamba2-2.7b", "zamba2-7b",
+                                  "whisper-large-v3"])
 def test_build_model_builds_dense_and_vlm(arch):
-    """Every ported family (dense, vlm, moe, ssm, hybrid) builds and runs a
-    forward (a ``CausalLM``'s returns (logits, aux), the others' logits,
-    as in the reference)."""
+    """Every family (dense, vlm, moe, ssm, hybrid, encdec) builds and runs
+    a forward (a ``CausalLM``'s returns (logits, aux), the others' logits,
+    as in the reference; the encdec family's takes frames first)."""
     cfg = get_smoke_config(arch)
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     assert params is model and model.device == torch.device("cpu")
-    logits = model.forward(params, torch.zeros((1, 3), dtype=torch.int64))
+    toks = torch.zeros((1, 3), dtype=torch.int64)
+    if cfg.family == "encdec":
+        frames = torch.ones((1, cfg.encoder_ctx, cfg.d_model))
+        logits = model.forward(params, frames, toks)
+    else:
+        logits = model.forward(params, toks)
     if isinstance(logits, tuple):
         logits = logits[0]
     assert logits.shape == (1, 3, cfg.vocab_size)
