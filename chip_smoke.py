@@ -131,7 +131,7 @@ Phases, one JSON line each:
                (1, 1), (1, 4) and (2, 4) meshes through rowgather, dma and
                dedup_gather, bit-identical, each launching its own kernel
                only, the first 8 queries equal to the same search on the
-               CPU, recall@10 at least 0.25, p50 wall of 5 batches and one
+               CPU, recall@10 at least 0.25, p50 wall of 3 batches and one
                batch under torch.profiler (device busy and idle share); the
                coalescer over the (1, 4) sharded engine, 16 single queries,
                each equal to ``index.search``; the corpus path:
@@ -140,7 +140,8 @@ Phases, one JSON line each:
                launches), ``corpus_sharded_search`` and the corpus
                AnnEngine on a (1, 4) mesh: ids in range, recall@10 against
                the exact kNN of the whole corpus at least 0.25, the engine
-               equal to the direct search, p50 and profile as above.  The
+               equal to the direct search, the wall of one batch and one
+               under torch.profiler (its device events alone).  The
                kernels line's rows gain ``launches_sharded``;
  15. knnlm   — qwen2.5-3b at full width and depth, random weights from
                --seed: the port's CausalLM at 2 layers on the card against
@@ -228,7 +229,27 @@ Phases, one JSON line each:
                no kernel launched), replayed against the teacher-forced
                forward (phase 15's check), and a replay in f32 compute on
                8 × 16 + 8 steps (phase 18's check).  The kernels line's
-               rows gain ``launches_encdec`` (0).
+               rows gain ``launches_encdec`` (0);
+ 20. launch  — the launch tools (repro_torch.launch) against the card.
+               Cells of configs/shapes.py with only the global batch cut:
+               qwen2.5-3b decode_32k at batch 8 of 128 (a 9.7 GB cache),
+               mamba2-2.7b long_500k whole (batch 1), qwen2.5-3b train_4k
+               at batch 8 of 256 in 8 microbatches of 1 row; each traced
+               on the meta device (launch/dryrun.py, in two worker
+               processes started before phase 19) and run on the card
+               under the same op counter: the records equal op for op
+               (names, shapes, dtypes, FLOPs, bytes), the argument bytes
+               exactly, the peak within 20% of max_memory_allocated, the
+               profiled busy time at least 95% of the larger roofline term
+               (launch/roofline.py); one card's share of the two ANN cells
+               of launch/dryrun_ann.py (a 48M-row bf16 shard, 64 queries
+               on a (1, 1) mesh; the 10M graph, 64 queries, 16 walker
+               lanes): bytes exact against the meta count (the shard
+               13,824,000,000 B), the first 8 queries equal (ids, dists,
+               the 8 counters) through rowgather and ref; and every
+               prefill_32k cell's one-card facts, counted on meta alone.
+               The kernels line's rows gain ``launches_launch`` (the ANN
+               shares' rowgather launches).
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -248,7 +269,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
+import importlib.util
 import json
 import os
 import subprocess
@@ -264,9 +287,28 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 N = 1_000_000                 # vectors in the index: SIFT1M's size
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
-INT8_OP_PER_S = 1979e12       # H100 SXM int8, dense
+
+@functools.lru_cache(maxsize=None)
+def _launch_module(name: str):
+    """``src/repro_torch/launch/<name>.py`` of this checkout (``roofline``,
+    the one home of the H100's peaks; ``op_profile``, whose
+    ``device_profile`` reads a run on the card), loaded by its path:
+    importing it through the package would fix which ``repro_torch`` every
+    later import finds before ``--profile-src`` may name another, and an
+    older package under ``--profile-src`` may lack it."""
+    spec = importlib.util.spec_from_file_location(
+        f"_smoke_{name}",
+        os.path.join(ROOT, "src", "repro_torch", "launch", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_RL = _launch_module("roofline")
+HBM_BYTES_PER_S = _RL.HBM_BW                # H100 SXM device memory
+F32_FLOP_PER_S = _RL.PEAK_FLOPS["f32"]      # f32 outside the tensor cores
+INT8_OP_PER_S = _RL.PEAK_FLOPS["int8"]      # int8, dense
+BF16_FLOP_PER_S = _RL.PEAK_FLOPS["bf16"]    # dense bf16
 BACKENDS = ("ref", "rowgather", "dma", "dedup_gather")
 INT8_BACKENDS = ("ref_int8", "rowgather_int8", "dedup_gather_int8")
 # backend -> the kernel its distance calls launch (ref* launch none); the
@@ -326,7 +368,6 @@ KNNLM_REPS = 3                # timed kNN-LM calls (p50; 5 until phase 19)
 TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
 TRAIN_RUN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 4
-BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 peak
 # phase 17 (moe): qwen3-moe-30b-a3b at full width.  (a) card vs CPU at 2
 # layers, f32, MOE_CHECK_ROWS × MOE_CHECK_SEQ tokens; (b) the lane paths on
 # one layer's experts and MOE_LANE_TOKENS tokens over MOE_LANE_MESHES; (c)
@@ -368,6 +409,22 @@ WHISPER_ARCH = "whisper-large-v3"
 WHISPER_CHECK_DEPTH, WHISPER_CHECK_ROWS, WHISPER_CHECK_SEQ = 2, 2, 64
 WHISPER_PROMPTS, WHISPER_PROMPT_LEN, WHISPER_STEPS = 8, 64, 32
 WHISPER_REPLAY_LEN, WHISPER_REPLAY_STEPS = 16, 8
+# phase 20 (launch): the launch tools (repro_torch.launch) held against the
+# card.  Cells of configs/shapes.py as (arch, shape, global batch, train
+# microbatches); only the batch is cut (None: the cell's own), widths,
+# depth and sequence are the cell's.  Each is traced on the meta device (in
+# a worker process, beside the card's runs) and run on the card under the
+# same op counter: the records equal op for op, the argument bytes exactly,
+# the peaks within LAUNCH_PEAK_REL, the profiled busy time at least
+# LAUNCH_BUSY_SHARE of the larger roofline term.  Then one card's share of
+# the two ANN cells of launch/dryrun_ann.py; and every prefill_32k cell's
+# one-card facts, counted on the meta device alone
+LAUNCH_CELLS = (("qwen2.5-3b", "decode_32k", 8, None),
+                ("mamba2-2.7b", "long_500k", None, None),
+                ("qwen2.5-3b", "train_4k", 8, 8))
+LAUNCH_PEAK_REL = 0.2
+LAUNCH_BUSY_SHARE = 0.95
+LAUNCH_SHARD_BYTES = 13_824_000_000   # 48M × (96 × 2 B + 24 × 4 B)
 
 
 def knnlm_gather_shapes(n_keys: int, build_batch: int = BUILD_BATCH,
@@ -1160,58 +1217,16 @@ def profile_batch(index, queries, params, smi, backend: str = "rowgather"):
             **profile_call(lambda: fn(queries[:64]), backend), "card": smi}
 
 
-def profile_call(run, backend):
+def profile_call(run, backend, **kw):
     """``run()`` (one batch through ``backend``; None for a run with no
-    distance kernel): its wall time (median of 3 plain runs), then one run
-    under torch.profiler for the summed kernel time, the device's idle
-    share against the plain wall time, the kernel launches, the distance
-    kernel's calls and mean time, and the ops that take the most device
-    time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = float(np.median(walls))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_profiled = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    events = prof.key_averages()
-    # kernels (device events) give the busy time; the aten ops that
-    # launched them give the breakdown
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    ops = sorted((e for e in events
-                  if e.device_type == DeviceType.CPU and dev_us(e) > 0),
-                 key=dev_us, reverse=True)
-    measured = busy_ms > 0
-    dist = [e for e in kernels
-            if backend is not None and TRACE_KERNEL[backend] in e.key]
-    dist_ms = sum(dev_us(e) for e in dist) / 1e3
-    dist_n = sum(e.count for e in dist)
-    return {"wall_ms": wall, "wall_ms_profiled": wall_profiled,
-            "device_busy_ms": busy_ms if measured else "not measured",
-            "idle_share": 1 - busy_ms / wall if measured
-            else "not measured",
-            "kernel_launches": sum(e.count for e in kernels),
-            "dist_kernel_calls": dist_n,
-            "dist_kernel_mean_ms": dist_ms / dist_n if dist_n
-            else "not measured",
-            "top_ops_device_ms": [[e.key, dev_us(e) / 1e3, e.count]
-                                  for e in ops[:10]]}
+    distance kernel) read by ``repro_torch.launch.op_profile``'s
+    ``device_profile`` (``kw`` passed on): its wall time (median of 3
+    plain runs), then one run under torch.profiler for the summed kernel
+    time, the device's idle share against the plain wall time, the kernel
+    launches, the distance kernel's calls and mean time, and the ops that
+    take the most device time."""
+    return _launch_module("op_profile").device_profile(
+        run, TRACE_KERNEL[backend] if backend is not None else None, **kw)
 
 
 def profile_backends(index, qindex, queries, smi):
@@ -1645,6 +1660,11 @@ N_CORPUS = N // 4
 # the corpus engine's best-first walker (M = 1) takes a step per expanded
 # vertex: the step budget of the reference's own multi-device check
 CORPUS_MAX_STEPS = 384
+# timed corpus batches (4 shards × 384 steps in series a batch):
+# SHARD_REPS until phase 20 came, with a profile of its ops where the
+# device's events alone are read now (on one H100 the corpus part took
+# 153 s that way, 48 s this way, the build 44 s of each)
+CORPUS_REPS = 1
 
 
 def same_result(a, b) -> bool:
@@ -1755,7 +1775,8 @@ def corpus_mesh(base, queries, path_launches):
     ``corpus_sharded_search`` and the corpus ``AnnEngine`` on a (1, 4)
     mesh, rowgather, a batch of 64: ids in range, recall@10 against the
     exact kNN of the whole corpus >= 0.25, the engine equal to the direct
-    search, p50 wall of SHARD_REPS batches and one under the profiler."""
+    search, the wall of CORPUS_REPS batches and one under the profiler
+    (its device events alone)."""
     import torch
     from repro_torch.ann import IndexSpec
     from repro_torch.core import exact_knn, recall_at_k
@@ -1798,7 +1819,8 @@ def corpus_mesh(base, queries, path_launches):
             and np.array_equal(served.dists, dists.cpu().numpy())):
         raise AssertionError("the corpus engine differs from the direct "
                              "corpus search")
-    walls = batch_walls(lambda: corpus_sharded_search(sharded, q, cfg, mesh))
+    walls = batch_walls(lambda: corpus_sharded_search(sharded, q, cfg, mesh),
+                        CORPUS_REPS)
     return {"n": N_CORPUS, "shards": N_SHARDS,
             "rows_per_shard": sharded.nbrs.shape[1],
             "build_seconds": build_s, "build_peak_bytes": peak,
@@ -1808,7 +1830,7 @@ def corpus_mesh(base, queries, path_launches):
             "p50_batch_ms": float(np.median(walls)), "batch_ms": walls,
             "profile": profile_call(
                 lambda: corpus_sharded_search(sharded, q, cfg, mesh),
-                "rowgather"),
+                "rowgather", reps=0, cpu_ops=False),
             "launches": {p: path_launches[p] for p in path_launches
                          if p.startswith("corpus_")}}
 
@@ -3961,6 +3983,228 @@ def encdec_phase(seed: int, smi):
     return out, path_launches
 
 
+def launch_card_cell(arch: str, shape_name: str, batch, microbatches,
+                     seed: int):
+    """Phase 20 (a)-(c) on the card: cell ``arch|shape_name`` (global
+    batch ``batch``, ``microbatches`` for a train step), random weights
+    from ``seed``: its arguments made after the peak is reset, one step
+    under ``OpCounter``, then ``device_profile`` of the step (a train
+    step: the counted step is the profiled one, its device traced alone).
+    Returns what :func:`launch_check` holds to the meta trace."""
+    import dataclasses
+    import torch
+    from repro_torch.config import SHAPES_BY_NAME
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_profile import OpCounter, device_profile
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg, shape = get_config(arch), SHAPES_BY_NAME[shape_name]
+    tcfg = dryrun.train_config_for(cfg)
+    if microbatches:
+        tcfg = dataclasses.replace(tcfg, microbatches=microbatches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    args = dryrun.cell_arguments(
+        model, cfg, shape, tcfg, batch,
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    step = dryrun.cell_step(model, cfg, shape, tcfg)
+
+    def one():
+        step(args)
+    counter = OpCounter()
+
+    def counted_step():
+        with counter:
+            one()
+    t1 = time.perf_counter()
+    got = {}
+    if shape.kind == "train":
+        # a step takes seconds and ~10^5 ops: the counted step is also the
+        # profiled one, its device traced alone
+        def run():
+            _, got["launches"] = counted(counted_step)
+        prof = device_profile(run, reps=0, cpu_ops=False)
+    else:
+        _, got["launches"] = counted(counted_step)
+    peak = torch.cuda.max_memory_allocated() - base
+    t2 = time.perf_counter()
+    if shape.kind != "train":
+        prof = device_profile(one, cpu_ops=False)
+    card = {"arch": arch, "shape": shape_name, "kind": shape.kind,
+            "global_batch": batch or shape.global_batch,
+            "cut": (f"global batch {shape.global_batch} -> {batch}"
+                    if batch else None),
+            "microbatches": tcfg.microbatches if shape.kind == "train"
+            else None,
+            "layers": cfg.num_layers, "seq_len": shape.seq_len,
+            "record": counter.record,
+            "argument_bytes": dryrun.tree_bytes(args), "peak_bytes": peak,
+            "launches": got["launches"], "profile": prof,
+            "split_s": {"init": t1 - t0, "counted": t2 - t1,
+                        "profiled": time.perf_counter() - t2}}
+    del args, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    card["seconds"] = time.perf_counter() - t0
+    return card
+
+
+def launch_check(card: dict, meta_future):
+    """Phase 20 (a)-(c), the checks: ``meta_future``'s result, the meta
+    trace of the same cut cell, awaited and held to ``card``: the op
+    records equal op for op, the argument bytes exactly, the peaks within
+    LAUNCH_PEAK_REL, the profiled busy time at least LAUNCH_BUSY_SHARE of
+    the larger roofline term of the meta counts (a card that beats the
+    bound means the count is short).  Returns the cell's facts."""
+    from repro_torch.launch.op_profile import (first_difference,
+                                               record_bytes, record_flops)
+    t0 = time.perf_counter()
+    meta = meta_future.result()
+    wait = time.perf_counter() - t0
+    record = card.pop("record")
+    name = f"{card['arch']}|{card['shape']}"
+    diff = first_difference(record, meta["record"])
+    m = meta["memory"]
+    bound_ms = max(meta["t_compute_s"], meta["t_memory_s"]) * 1e3
+    busy = card["profile"]["device_busy_ms"]
+    peak = card["peak_bytes"]
+    out = dict(card,
+               ops=len(record), meta_ops=len(meta["record"]),
+               record_equal=diff is None, first_difference=diff,
+               flops_by_dtype=record_flops(record),
+               meta_flops_by_dtype=meta["flops_by_dtype"],
+               bytes=record_bytes(record), meta_bytes=meta["bytes"],
+               meta_argument_bytes=m["argument_bytes"],
+               meta_peak_bytes=m["peak_bytes"],
+               peak_rel_err=abs(peak - m["peak_bytes"]) / m["peak_bytes"],
+               meta_fits=meta["fits"], meta_trace_s=meta["trace_s"],
+               meta_wait_s=wait,
+               t_compute_ms=meta["t_compute_s"] * 1e3,
+               t_memory_ms=meta["t_memory_s"] * 1e3,
+               dominant=meta["dominant"], bound_ms=bound_ms,
+               busy_over_bound=(busy / bound_ms if isinstance(busy, float)
+                                else busy),
+               tolerance={"record": "equal", "argument_bytes": "exact",
+                          "peak_rel": LAUNCH_PEAK_REL,
+                          "busy_over_bound_min": LAUNCH_BUSY_SHARE})
+    if diff is not None:
+        raise AssertionError(f"{name}: the card's op record differs from "
+                             f"the meta trace's: {diff}")
+    if card["argument_bytes"] != m["argument_bytes"]:
+        raise AssertionError(f"{name}: argument bytes "
+                             f"{card['argument_bytes']} on the card, "
+                             f"{m['argument_bytes']} on meta")
+    if out["peak_rel_err"] > LAUNCH_PEAK_REL:
+        raise AssertionError(f"{name}: peak {peak} on the card, "
+                             f"{m['peak_bytes']} on meta")
+    if not isinstance(busy, float) or busy < LAUNCH_BUSY_SHARE * bound_ms:
+        raise AssertionError(f"{name}: busy {busy} ms under "
+                             f"{LAUNCH_BUSY_SHARE} of the bound {bound_ms} "
+                             f"ms: the count is short")
+    return out
+
+
+def launch_ann(kind: str, seed: int):
+    """Phase 20 (d): one card's share of the ANN cell ``kind`` (corpus or
+    walker) through ``launch.dryrun_ann.run_share``: the bytes exact
+    against the meta count (the corpus shard 13,824,000,000 B), the first
+    8 queries equal through rowgather and ref.  Returns (the facts, the
+    path launches)."""
+    from repro_torch.launch import dryrun_ann
+
+    t0 = time.perf_counter()
+    # no device profile: a search launches ~33k kernels, whose trace
+    # takes longer to read than the search (dryrun_ann --run profiles it)
+    out = dryrun_ann.run_share(kind, seed, profile=False)
+    out["seconds"] = time.perf_counter() - t0
+    if out["index_bytes"] != out["meta_index_bytes"] \
+            or out["index_bytes"] != out["analytic_bytes"] \
+            or out["query_bytes"] != out["meta_query_bytes"]:
+        raise AssertionError(f"{kind}: bytes on the card {out['index_bytes']}"
+                             f" (queries {out['query_bytes']}), on meta "
+                             f"{out['meta_index_bytes']} "
+                             f"({out['meta_query_bytes']}), analytic "
+                             f"{out['analytic_bytes']}")
+    if kind == "corpus" and out["shard_bytes"] != LAUNCH_SHARD_BYTES:
+        raise AssertionError(f"corpus shard {out['shard_bytes']} B, not "
+                             f"{LAUNCH_SHARD_BYTES}")
+    if not out["same_as_ref"]:
+        raise AssertionError(f"{kind}: rowgather differs from ref on the "
+                             f"first {out['checked_queries']} queries")
+    lc = out["launches"]
+    return out, {f"launch-{kind}/ref": lc["ref"],
+                 f"launch-{kind}/rowgather": lc["check"],
+                 f"launch-{kind}-run/rowgather": lc["run"]}
+
+
+def launch_pool():
+    """Two spawned worker processes for phase 20's meta traces."""
+    import concurrent.futures
+    import multiprocessing
+    return concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+
+
+def launch_meta_traces(pool):
+    """Submit phase 20's meta traces to ``pool``: the cut cells (the train
+    cell first: its trace is the longest) with their op records,
+    then every arch's prefill_32k cell on one card.  Returns (futures by
+    cell, futures by arch)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import dryrun
+    order = sorted(LAUNCH_CELLS, key=lambda c: c[1] != "train_4k")
+    metas = {c: pool.submit(dryrun.trace_facts, c[0], c[1], record=True,
+                            batch=c[2], microbatches=c[3]) for c in order}
+    prefill = {a: pool.submit(dryrun.trace_facts, a, "prefill_32k")
+               for a in ARCH_IDS}
+    return metas, prefill
+
+
+def launch_phase(seed: int, smi, traces=None):
+    """Phase 20: the launch tools against the card.  ``traces`` are
+    :func:`launch_meta_traces`'s futures, submitted before phase 19 so that
+    the meta traces run beside it; without them the phase starts its own
+    workers.  The card runs every cell (the train cell first), then holds
+    each to its meta trace.  Returns (the phase's line, its path
+    launches)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "launch", "card": smi,
+           "allocated_bytes_at_start": torch.cuda.memory_allocated(),
+           "meta_traces": "beside phase 19" if traces else "in the phase"}
+    path_launches = {}
+    with contextlib.ExitStack() as stack:
+        if traces is None:
+            traces = launch_meta_traces(stack.enter_context(launch_pool()))
+        metas, prefill = traces
+        cards = [launch_card_cell(*cell, seed) for cell in metas]
+        out["ann"] = {}
+        for kind in ("corpus", "walker"):
+            out["ann"][kind], lc = launch_ann(kind, seed)
+            path_launches.update(lc)
+        out["cells"] = []
+        for cell, card in zip(metas, cards):
+            path_launches[f"launch-{cell[0]}-{cell[1]}/ref"] = \
+                card["launches"]
+            out["cells"].append(launch_check(card, metas[cell]))
+        keep = ("memory", "fits", "flops_by_dtype", "bytes", "t_compute_s",
+                "t_memory_s", "dominant", "trace_s", "ops")
+        out["prefill_32k_1xh100"] = {
+            a: {k: f.result()[k] for k in keep} for a, f in prefill.items()}
+    check_launches(path_launches)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, path_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4188,11 +4432,21 @@ def main() -> int:
         # nor do the ssm and hybrid paths
         row["launches_ssm"] = sum(c[row["name"]]
                                   for c in ssm_launches.values())
-    encdec, encdec_launches = encdec_phase(args.seed, smi)
-    emit(encdec)
+    with launch_pool() as pool:
+        # phase 20's meta traces run in two workers beside phase 19
+        traces = launch_meta_traces(pool)
+        encdec, encdec_launches = encdec_phase(args.seed, smi)
+        emit(encdec)
+        for row in rows:
+            # nor does the encdec path
+            row["launches_encdec"] = \
+                encdec_launches["encdec/ref"][row["name"]]
+        launched, launch_launches = launch_phase(args.seed, smi, traces)
+    emit(launched)
     for row in rows:
-        # nor does the encdec path
-        row["launches_encdec"] = encdec_launches["encdec/ref"][row["name"]]
+        # the ANN cells' card shares launch rowgather; the LM cells none
+        row["launches_launch"] = sum(c[row["name"]]
+                                     for c in launch_launches.values())
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

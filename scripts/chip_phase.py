@@ -4,8 +4,9 @@ flags its ``main`` sets, and print the phase's line.
 
     PYTHONPATH=src python3 scripts/chip_phase.py ssm [--seed 0] > ssm.json
 
-Phases: ``train`` (16), ``moe`` (17), ``ssm`` (18), ``encdec`` (19): the ones
-that need no kernel build or index.  Needs one CUDA device.
+Phases: ``train`` (16), ``moe`` (17), ``ssm`` (18), ``encdec`` (19) and
+``launch`` (20): the ones that need no index (``launch`` builds the rowgather
+kernel at its first launch).  Needs one CUDA device.
 """
 import argparse
 import json
@@ -19,7 +20,8 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("phase", choices=("train", "moe", "ssm", "encdec"))
+    ap.add_argument("phase",
+                    choices=("train", "moe", "ssm", "encdec", "launch"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import ref as _ref
+from repro_torch.launch import op_profile
 
 MAX_N = 16384
 
@@ -48,6 +49,14 @@ def sort_pairs(keys: torch.Tensor, p0: torch.Tensor, p1: torch.Tensor
     out = (torch.empty_like(keys), torch.empty_like(p0),
            torch.empty_like(p1))
     if keys.numel():
+        if op_profile.ACTIVE is not None:
+            # 12 B an element read and written; two comparisons a
+            # compare-exchange of the bitonic network
+            k = n.bit_length() - 1
+            op_profile.ACTIVE.kernel(
+                "sort_pairs", (keys, p0, p1), out,
+                keys.shape[0] * (n // 2) * (k * (k + 1) // 2) * 2, "f32",
+                12 * keys.numel(), 12 * keys.numel())
         _cuda.launch("bitonic", "sort_pairs", keys, p0, p1, *out,
                      keys.shape[0], n)
     return out

@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.registry import pad_ids_to_tile, register_backend
+from repro_torch.launch import op_profile
 from repro_torch.quant import kernels as _qk
 
 TILE = 8                      # unique_ids_inverse's sentinel padding
@@ -95,6 +96,9 @@ def dedupdist(table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
         return _ref.dist_ref(table, ids, queries, metric)
     out = torch.empty(ids.shape, dtype=torch.float32, device=table.device)
     if out.numel():
+        if op_profile.ACTIVE is not None:
+            op_profile.report_gather("dedupdist", table, ids, queries, out,
+                                     3 - int(metric != "l2"), "f32")
         _cuda.launch("dedup", "dedupdist", table,
                      int(table.dtype == torch.bfloat16), n, d, ids,
                      ids.shape[0], ids.shape[1], tile, queries, out,
@@ -122,6 +126,9 @@ def dedupdist_int8(codes: torch.Tensor, scales: torch.Tensor,
     qc, qs, q2 = _qk.query_side(queries, qmeta)
     out = torch.empty(ids.shape, dtype=torch.float32, device=codes.device)
     if out.numel():
+        if op_profile.ACTIVE is not None:
+            op_profile.report_gather("dedupdist_int8", codes, ids, queries,
+                                     out, 4, "int8", pair_bytes=4)
         _cuda.launch("dedup_int8", "dedupdist_int8", codes, n, d, scales,
                      ids, ids.shape[0], ids.shape[1], tile, qc, qs, q2, out,
                      int(kmetric == "ip"), _cuda.int8_vec_ok(codes, qc))

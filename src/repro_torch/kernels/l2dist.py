@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import ref as _ref
+from repro_torch.launch import op_profile
 
 
 def _ip(metric: str) -> int:
@@ -134,6 +135,9 @@ def l2dist_rowgather(table: torch.Tensor, ids: torch.Tensor,
     if out.numel():
         plan = rowgather_plan(ids.shape[0], ids.shape[1], table.shape[1],
                               table.dtype, _cuda.sm_count(table.device))
+        if op_profile.ACTIVE is not None:
+            op_profile.report_gather("l2dist_rowgather", table, ids,
+                                     queries, out, 3 - ip, "f32")
         _cuda.launch("rowgather", "l2dist_rowgather",
                      table, int(table.dtype == torch.bfloat16),
                      table.shape[0], table.shape[1], ids, ids.shape[0],
@@ -158,6 +162,9 @@ def l2dist_dma(table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
     if out.numel():
         plan = dma_plan(ids.shape[0], ids.shape[1], table.shape[1],
                         table.dtype, _cuda.sm_count(table.device))
+        if op_profile.ACTIVE is not None:
+            op_profile.report_gather("l2dist_dma", table, ids, queries,
+                                     out, 3 - ip, "f32")
         _cuda.launch("dma", "l2dist_dma",
                      table, int(table.dtype == torch.bfloat16),
                      table.shape[0], table.shape[1], ids, ids.shape[0],

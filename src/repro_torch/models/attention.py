@@ -82,8 +82,7 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
     # mask (B?, 1, Sq, Sk) -> (B?, 1, 1, Sq, Sk) for the group axis
     scores = torch.where(mask[:, :, None, :, :], scores,
-                         torch.tensor(-1e30, dtype=scores.dtype,
-                                      device=scores.device))
+                         scores.new_full((), -1e30))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
                        v.float())

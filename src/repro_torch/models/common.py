@@ -38,7 +38,10 @@ def normal_init(generator: torch.Generator, shape, scale: float,
                 dtype: torch.dtype) -> torch.Tensor:
     """N(0, scale²) drawn in float32 from ``generator`` on its device, cast
     to ``dtype``.  (Draws cannot reproduce ``jax.random``; parity with the
-    reference goes through ``models.convert.params_from_jax``.)"""
+    reference goes through ``models.convert.params_from_jax``.)  On the
+    meta device (``models.params.NO_DRAW``) nothing is drawn."""
+    if generator.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (x * scale).to(dtype)

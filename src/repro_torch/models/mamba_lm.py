@@ -9,7 +9,7 @@ per-layer views), and run the layers in a Python loop.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -45,9 +45,10 @@ class MambaLM(TreeModel):
         return {"norm": rmsnorm_init(cfg.d_model, pdt, self.device),
                 "mamba": ssm_mod.mamba2_init(generator, cfg, pdt)}
 
-    def init_tree(self, generator: torch.Generator) -> dict:
+    def init_tree(self, generator: Optional[torch.Generator] = None
+                  ) -> dict:
         """The weights :meth:`init` draws, as the reference's tree."""
-        self.check_generator(generator)
+        generator = self.check_generator(generator)
         cfg, pdt = self.cfg, pdtype_of(self.cfg)
         return {
             "embedding": normal_init(
@@ -103,7 +104,9 @@ class MambaLM(TreeModel):
         convs, ssms = [], []
         for lp in layers:
             if remat:
-                x = checkpoint(self._train_layer, lp, x, use_reentrant=False)
+                # the layers draw no random numbers: no RNG state to keep
+                x = checkpoint(self._train_layer, lp, x, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x, st = self._layer(lp, x, collect_state)
                 if collect_state:

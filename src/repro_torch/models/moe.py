@@ -58,6 +58,13 @@ def top_k(probs: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
+def one_hot(ids: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``F.one_hot(ids, n).to(dtype)`` as one comparison, the same ops on
+    every device (``F.one_hot`` checks the ids' range on the CPU alone,
+    so an op record made there would differ from the card's)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).to(dtype)
+
+
 def rank_within(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     """Exclusive rank of each element of ``ids`` (in [0, num_buckets))
     within its bucket, along the last axis: the reference's cumsum of the
@@ -65,7 +72,7 @@ def rank_within(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     contiguous memory (on one H100 the cumsum of a 32,768 × 128 one-hot
     along the P axis takes 8.8 ms, this way 0.18 ms:
     ``scripts/torch_moe_rank_bench.py``)."""
-    onehot = F.one_hot(ids, num_buckets).to(torch.int32)
+    onehot = one_hot(ids, num_buckets, torch.int32)
     csum = torch.cumsum(onehot.transpose(-1, -2).contiguous(), dim=-1,
                         dtype=torch.int32)
     return torch.gather(csum, -2, ids[..., None, :])[..., 0, :] - 1
@@ -85,7 +92,7 @@ def route(x: torch.Tensor, router: torch.Tensor, k: int):
 def expert_counts(top_e: torch.Tensor, e: int) -> torch.Tensor:
     """The aux loss's ``ce``: the mean over tokens of each expert's share
     of a token's k slots (a one-hot: no gradient)."""
-    return F.one_hot(top_e, e).float().sum(-2).mean(-2)
+    return one_hot(top_e, e, torch.float32).sum(-2).mean(-2)
 
 
 def swiglu_experts(disp: torch.Tensor, wg, wu, wd) -> torch.Tensor:

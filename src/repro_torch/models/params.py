@@ -14,13 +14,24 @@ to the number of stacked leading axes its leaves carry.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.treepath import flatten_with_path, tree_map
+
+
+class NoDraw:
+    """The generator of a model on the meta device, where
+    ``torch.Generator`` cannot be made: ``models.common.normal_init``
+    returns ``torch.empty`` for it, and the leaves made on
+    ``generator.device`` land on the meta device with the rest."""
+    device = torch.device("meta")
+
+
+NO_DRAW = NoDraw()
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -119,12 +130,21 @@ class TreeModel(nn.Module):
             return self.embedding.device
         return self._device
 
-    def init(self, generator: torch.Generator):
+    def init(self, generator: Optional[torch.Generator] = None):
         """Draw every weight from ``generator`` (on the model's device) and
-        return the module: the ``params`` of the other methods."""
+        return the module: the ``params`` of the other methods.  A model on
+        the meta device takes no generator and draws nothing."""
         return self.set_params(self.init_tree(generator))
 
-    def check_generator(self, generator: torch.Generator) -> None:
-        if generator.device.type != self.device.type:
-            raise ValueError(f"generator on {generator.device}, model on "
-                             f"{self.device}")
+    def check_generator(self, generator: Optional[torch.Generator]):
+        """The generator ``init_tree`` draws from: ``generator``, on the
+        model's device type; for a model on the meta device,
+        :data:`NO_DRAW` (every leaf ``torch.empty``, as
+        ``jax.eval_shape`` of the reference's init gives shapes only)."""
+        if self.device.type == "meta" and generator is None:
+            return NO_DRAW
+        if generator is None or generator.device.type != self.device.type:
+            raise ValueError(f"generator on "
+                             f"{getattr(generator, 'device', None)}, model "
+                             f"on {self.device}")
+        return generator

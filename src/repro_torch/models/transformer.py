@@ -100,12 +100,13 @@ class CausalLM(TreeModel):
             p["mlp"] = mlp_mod.swiglu_init(generator, cfg, pdt)
         return p
 
-    def init_tree(self, generator: torch.Generator) -> dict:
+    def init_tree(self, generator: Optional[torch.Generator] = None
+                  ) -> dict:
         """The weights :meth:`init` draws, as the reference's tree
         (:func:`params_tree`'s layout) that no module holds.  Layer ``i``
         is drawn whole before layer ``i + 1`` and written into its row of
         the stacked leaves."""
-        self.check_generator(generator)
+        generator = self.check_generator(generator)
         cfg = self.cfg
         pdt = pdtype_of(cfg)
         tree = {"embedding": normal_init(
@@ -201,8 +202,10 @@ class CausalLM(TreeModel):
         remat = remat and torch.is_grad_enabled()
         for lp in params.layers:
             if remat:
+                # the layers draw no random numbers: no RNG state to keep
                 x, a = checkpoint(self._train_layer, lp, x, rope,
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
                 x, a = self._train_layer(lp, x, rope)
             aux = aux + a

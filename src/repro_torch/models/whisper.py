@@ -16,7 +16,7 @@ per-layer views), and run the layers in a Python loop.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -71,9 +71,10 @@ class WhisperModel(TreeModel):
             "mlp": mlp_mod.gelu_mlp_init(generator, cfg, dtype=pdt),
         }
 
-    def init_tree(self, generator: torch.Generator) -> dict:
+    def init_tree(self, generator: Optional[torch.Generator] = None
+                  ) -> dict:
         """The weights :meth:`init` draws, as the reference's tree."""
-        self.check_generator(generator)
+        generator = self.check_generator(generator)
         cfg, pdt = self.cfg, pdtype_of(self.cfg)
         return {
             "embedding": normal_init(
@@ -160,8 +161,10 @@ class WhisperModel(TreeModel):
         remat = remat and torch.is_grad_enabled()
         for lp in dec_layers:
             if remat:
+                # the layers draw no random numbers: no RNG state to keep
                 x = checkpoint(self._train_layer, lp, x, enc,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = self._train_layer(lp, x, enc)
         return self._logits(tree, x)

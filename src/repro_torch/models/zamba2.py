@@ -19,7 +19,7 @@ layers run in Python loops.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,9 +75,10 @@ class Zamba2Model(TreeModel):
         return {"norm": rmsnorm_init(cfg.d_model, pdt, self.device),
                 "mamba": ssm_mod.mamba2_init(generator, cfg, pdt)}
 
-    def init_tree(self, generator: torch.Generator) -> dict:
+    def init_tree(self, generator: Optional[torch.Generator] = None
+                  ) -> dict:
         """The weights :meth:`init` draws, as the reference's tree."""
-        self.check_generator(generator)
+        generator = self.check_generator(generator)
         cfg, pdt = self.cfg, pdtype_of(self.cfg)
         groups, per, tail = _layout(cfg)
         d2 = 2 * cfg.d_model
@@ -197,8 +198,10 @@ class Zamba2Model(TreeModel):
         g_states, caches = [], []
         for gp in grouped:
             if remat:
+                # the layers draw no random numbers: no RNG state to keep
                 x = checkpoint(self._train_group, gp, tree["shared"], x, x0,
-                               rope, use_reentrant=False)
+                               rope, use_reentrant=False,
+                               preserve_rng_state=False)
                 continue
             x, states, cache = self._group(gp, tree["shared"], x, x0, rope,
                                            mode, empty)

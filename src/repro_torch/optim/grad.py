@@ -29,7 +29,7 @@ def clip_by_global_norm(tree, max_norm: float, inplace: bool = False):
     own tensors (a caller that owns them) and returns ``tree``."""
     n = global_norm(tree)
     # a tensor numerator: Python-scalar / tensor is a reciprocal product
-    scale = torch.clamp(n.new_tensor(max_norm) / torch.clamp(n, min=1e-6),
+    scale = torch.clamp(n.new_full((), max_norm) / torch.clamp(n, min=1e-6),
                         max=1.0)
 
     def one(g):

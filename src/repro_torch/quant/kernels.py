@@ -32,6 +32,7 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.registry import register_backend
+from repro_torch.launch import op_profile
 from repro_torch.quant.codec import quantize_query
 
 
@@ -211,6 +212,9 @@ def int8dist_rowgather(codes: torch.Tensor, scales: torch.Tensor,
     if out.numel():
         plan = rowgather_int8_plan(ids.shape[0], ids.shape[1],
                                    codes.shape[1])
+        if op_profile.ACTIVE is not None:
+            op_profile.report_gather("int8dist_rowgather", codes, ids,
+                                     queries, out, 4, "int8", pair_bytes=4)
         _cuda.launch("rowgather_int8", "int8dist_rowgather",
                      codes, codes.shape[0], codes.shape[1], scales, ids,
                      ids.shape[0], ids.shape[1], qc, qs, q2, out,

@@ -118,7 +118,9 @@ LM_MODULES = ["config.py", "configs/__init__.py", "configs/qwen2_5_3b.py",
               "models/convert.py", "data/tokens.py", "data/vectors.py",
               "serve/engine.py", "serve/knnlm.py", "launch/serve.py",
               "sharding.py", "models/moe.py", "models/moe_a2a.py",
-              "models/whisper.py", "configs/shapes.py"]
+              "models/whisper.py", "configs/shapes.py",
+              "launch/roofline.py", "launch/op_profile.py",
+              "launch/dryrun.py", "launch/dryrun_ann.py", "launch/mesh.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
