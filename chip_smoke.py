@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the port's Speed-ANN search, serving and build paths, and its LMs
 (dense with kNN-LM retrieval and training; the moe, ssm, hybrid and encdec
-families), on one GPU.
+families), on one GPU, and its meshes over ranks on every GPU.
 
     python3 chip_smoke.py [--seed 0] [--profile-src DIR]
 
@@ -249,7 +249,29 @@ Phases, one JSON line each:
                the 8 counters) through rowgather and ref; and every
                prefill_32k cell's one-card facts, counted on meta alone.
                The kernels line's rows gain ``launches_launch`` (the ANN
-               shares' rowgather launches).
+               shares' rowgather launches);
+ 21. ranks   — run after phase 16: the meshes laid over the ranks of a
+               torch.distributed group (repro_torch.ranks).  NCCL over
+               every card, this process rank 0 and one spawned rank on
+               each further card (on one card a world of 1: the walkers
+               are lanes, the collectives go through NCCL), then gloo over
+               4 spawned ranks sharing the cards (CUDA payloads staged
+               through the host; skipped, and said, where the compute
+               mode forbids sharing a card).  Each rank loads the fixture
+               index file phase 5 left and runs, through rowgather on the
+               64 queries of phase 14, the walker path on (1, 4) bitmap,
+               (2, 4) bitmap and (1, 4) hash (split over the ranks as
+               launch.mesh.make_host_mesh splits them; a mesh that does not
+               split is said) and the corpus path on (1, 4) over its block
+               of phase 14's saved shards: ids, dists and the 8 counters
+               equal to phase 14's lanes answers, l2dist_rowgather the
+               only kernel a rank launches; and phase 16's compressed
+               step on a 4-position data axis over the ranks, its
+               parameter and residual digests, loss and grad norm equal to
+               phase 16's 4-lane step, with reshard_state of the
+               parameters and moments under NCCL.  Backend, world,
+               transport, the compute mode, p50 walls.  The kernels line's
+               rows gain ``launches_ranks``.
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -259,11 +281,12 @@ merge's pass-2 rows, beside the launch floor: unpack an older commit
 batch and kernel for kernel.
 
 The line before the last holds the kernels; the last is
-``{"ok": true, "device": {...}}``.  With integer coordinates in [0, 255] and
+``{"ok": true, "device": {...}}``.  Needs one CUDA device; phase 21 uses
+every card there is.  With integer coordinates in [0, 255] and
 d = 128 every f32 sum is exact in any order, which is why the f32 backends
 must agree bit for bit; the int8 backends agree because their integer sums
-are exact and their float epilogue is rounded op by op alike.  Needs one
-CUDA device; exits non-zero on any failure.
+are exact and their float epilogue is rounded op by op alike.  Exits
+non-zero on any failure.
 """
 from __future__ import annotations
 
@@ -274,6 +297,7 @@ import gc
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1693,7 +1717,13 @@ def _on_cpu(graph):
                              if isinstance(t, torch.Tensor)})
 
 
-def walker_meshes(index, queries, gt, path_launches):
+def _cpu_result(r):
+    """(ids, dists, {counter: values}) of a SearchResult, on the host."""
+    return (r.ids.cpu(), r.dists.cpu(),
+            {f: v.cpu() for f, v in r.stats._asdict().items()})
+
+
+def walker_meshes(index, queries, gt, path_launches, keep):
     """Phase 14, the walker path: ``SearchParams(algorithm="sharded")``
     (12 global rounds) on the 1M fixture index, a batch of 64, on each of
     SHARD_MESHES; per
@@ -1701,7 +1731,9 @@ def walker_meshes(index, queries, gt, path_launches):
     own kernel only, the first SHARD_CPU_QUERIES equal to the same search
     on the CPU, recall@10 >= 0.25, p50 wall of SHARD_REPS batches and one
     batch under the profiler; on (1, 4) the coalescer over the sharded
-    engine equal to ``index.search``."""
+    engine equal to ``index.search``, and the hash visited mode through
+    rowgather.  ``keep["walker"]`` gets the rowgather answers of (1, 4),
+    (2, 4) and (1, 4) hash for phase 21."""
     from repro_torch.ann import AnnIndex
     from repro_torch.core import recall_at_k
     from repro_torch.core.distributed import make_search_mesh
@@ -1737,6 +1769,8 @@ def walker_meshes(index, queries, gt, path_launches):
         if recall < 0.25:
             raise AssertionError(f"sharded {shape}: recall@10 {recall} "
                                  "below 0.25")
+        if name in ("1x4", "2x4"):
+            keep["walker"][f"{name}_bitmap"] = _cpu_result(card)
         fn = index.searcher(params.with_(backend="rowgather"), mesh=mesh)
         walls = batch_walls(lambda: fn(q))
         out[name] = {
@@ -1750,6 +1784,14 @@ def walker_meshes(index, queries, gt, path_launches):
                            for f, v in card.stats._asdict().items()}}
     mesh = make_search_mesh((1, 4))
     p = params.with_(backend="rowgather")
+    hashed, path_launches["sharded_1x4_hash/rowgather"] = counted(
+        index.search, q, p.with_(visited_mode="hash"), mesh=mesh)
+    if hashed.ids.shape != (64, 10) or not bool(
+            hashed.dists.isfinite().all()):
+        raise AssertionError("sharded (1, 4) hash: results malformed")
+    keep["walker"]["1x4_hash"] = _cpu_result(hashed)
+    out["1x4_hash"] = {"recall_at_10": recall_at_k(hashed.ids.cpu(),
+                                                   gt[:64], 10)}
     srv = index.serve_async(p, mesh=mesh, start=False)
     try:
         futs = [srv.submit(v) for v in queries[:16].cpu().numpy()]
@@ -1768,7 +1810,7 @@ def walker_meshes(index, queries, gt, path_launches):
     return out
 
 
-def corpus_mesh(base, queries, path_launches):
+def corpus_mesh(base, queries, path_launches, keep):
     """Phase 14, the corpus path: ``build_partitioned_index`` of the first
     N_CORPUS smoke vectors in N_SHARDS shards (the construct phase's spec,
     α = 1) with its seconds, peak memory and launches; then
@@ -1776,7 +1818,8 @@ def corpus_mesh(base, queries, path_launches):
     mesh, rowgather, a batch of 64: ids in range, recall@10 against the
     exact kNN of the whole corpus >= 0.25, the engine equal to the direct
     search, the wall of CORPUS_REPS batches and one under the profiler
-    (its device events alone)."""
+    (its device events alone).  The shards are saved to
+    ``keep["shards"]`` and the answer kept for phase 21."""
     import torch
     from repro_torch.ann import IndexSpec
     from repro_torch.core import exact_knn, recall_at_k
@@ -1812,6 +1855,9 @@ def corpus_mesh(base, queries, path_launches):
     recall = recall_at_k(ids, gt.cpu(), 10)
     if recall < 0.25:
         raise AssertionError(f"corpus recall@10 {recall} below 0.25")
+    torch.save({f: t.cpu() for f, t in sharded._asdict().items()},
+               keep["shards"])
+    keep["corpus"] = (ids, dists.cpu())
     engine = AnnEngine(sharded, params, mesh=mesh)
     served, path_launches["corpus_engine_1x4/rowgather"] = counted(
         engine.search, q)
@@ -1835,15 +1881,17 @@ def corpus_mesh(base, queries, path_launches):
                          if p.startswith("corpus_")}}
 
 
-def sharded_phase(index, base, queries, gt, smi):
+def sharded_phase(index, base, queries, gt, smi, keep):
     """Phase 14: the walker-sharded and corpus-sharded paths on the card.
-    Returns (the phase's line, its path launches)."""
+    Returns (the phase's line, its path launches); ``keep`` gets the lanes
+    answers phase 21 holds the ranks to."""
     import torch
     t0 = time.perf_counter()
     path_launches = {}
-    walker = walker_meshes(index, queries, gt, path_launches)
+    keep["walker"] = {}
+    walker = walker_meshes(index, queries, gt, path_launches, keep)
     t_walker = time.perf_counter() - t0
-    corpus = corpus_mesh(base, queries, path_launches)
+    corpus = corpus_mesh(base, queries, path_launches, keep)
     check_launches(path_launches)
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t0
@@ -1860,9 +1908,11 @@ def smoke_params():
                         algorithm="speedann")
 
 
-def build_index(seed: int):
+def build_index(seed: int, work=None):
     """Phases 4-5: the data and the fixture graph's index, saved and loaded
-    back; (index, queries on the card, facts of both phases)."""
+    back; (index, queries on the card, facts of both phases).  With
+    ``work`` (a directory that outlives the phase) the index file stays
+    there for phase 21's ranks, as ``facts["index_path"]``."""
     import torch
     from repro_torch.ann import AnnIndex, IndexSpec
     from repro_torch.core import knn_graph, make_padded_csr
@@ -1881,7 +1931,8 @@ def build_index(seed: int):
     graph = make_padded_csr(torch.cat([knn, rand], dim=1), base_dev,
                             device="cuda")
     del knn, rand, base_dev
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(work) if work is not None
+          else tempfile.TemporaryDirectory()) as tmp:
         t1 = time.perf_counter()
         path = AnnIndex(IndexSpec(metric="l2", degree=32), graph).save(
             os.path.join(tmp, "index.npz"))
@@ -1898,7 +1949,7 @@ def build_index(seed: int):
                    "medoid": int(index.graph.medoid)}
     return (index, torch.from_numpy(queries_np).cuda(),
             {"data": data, "graph": graph_facts, "base": base,
-             "more": more})
+             "more": more, "index_path": path})
 
 
 def count_query_meta(qindex, queries, params):
@@ -2882,7 +2933,29 @@ def _check_close(got: dict, want: dict, rel: float, what: str) -> float:
     return worst[0]
 
 
-def train_first_moments(cfg, seed: int):
+def compressed_setup(seed: int, dev="cuda"):
+    """Phase 16's first-step setup, which phase 21's ranks repeat: the
+    model (qwen2.5-3b at full width, 2 layers, f32) on ``dev``, the int8
+    training config, the state drawn from ``seed`` and one batch of 8 × 64
+    tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import init_train_state
+    small = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2,
+                                dtype="float32")
+    model = build_model(small, device=dev)
+    tcfg = TrainConfig(grad_compression="int8", learning_rate=1e-3,
+                       warmup_steps=1, total_steps=10)
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(
+        seed), tcfg)
+    return model, tcfg, state, _stream_batch(small, 8, 64, seed + 19, 0,
+                                             dev)
+
+
+def train_first_moments(seed: int, keep=None):
     """Phase 16 (4): qwen2.5-3b at full width, 2 layers, f32, one batch of
     8 × 64 tokens, three first steps from one state (AdamW, int8
     residuals): unsplit, microbatches = 2, and the compressed step on a
@@ -2895,25 +2968,17 @@ def train_first_moments(cfg, seed: int):
     entry, and equal to it within 1e-5 once the lanes' mean residual is
     added back; each lane's residual within half a step of its own
     gradient (taken here, lane by lane) and a whole number of steps away
-    from it."""
+    from it.  ``keep["compressed"]`` gets the compressed step's parameter
+    and per-lane residual digests, loss and grad norm, for phase 21."""
     import dataclasses
     import torch
-    from repro_torch.config import TrainConfig
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import build_model
     from repro_torch.train import make_train_step
-    from repro_torch.train.train_step import (_zeros, init_train_state,
-                                              loss_and_grad,
+    from repro_torch.train.train_step import (_zeros, loss_and_grad,
                                               make_compressed_dp_train_step)
     from repro_torch.treepath import tree_leaves, tree_map
 
-    small = dataclasses.replace(cfg, num_layers=2, dtype="float32")
-    model = build_model(small)
-    tcfg = TrainConfig(grad_compression="int8", learning_rate=1e-3,
-                       warmup_steps=1, total_steps=10)
-    state = init_train_state(model, torch.Generator(
-        device="cuda").manual_seed(seed), tcfg)
-    batch = _stream_batch(small, 8, 64, seed + 19, 0, "cuda")
+    model, tcfg, state, batch = compressed_setup(seed)
 
     def first(step, **kw):
         new, m = step(tree_map(torch.clone, state), batch)
@@ -2949,6 +3014,8 @@ def train_first_moments(cfg, seed: int):
     if loss_diff >= 1e-3 or p_diff >= 5e-3 or not resid > 0:
         raise AssertionError(f"compressed step: loss {loss_diff}, params "
                              f"{p_diff}, residual {resid}")
+    if keep is not None:
+        keep["compressed"] = compressed_digests(sc, mc)
     err = dict(_leaf_items(sc.err))
     lanes = []
     for i in range(4):
@@ -2996,7 +3063,7 @@ def train_first_moments(cfg, seed: int):
     return out
 
 
-def train_phase(seed: int, smi):
+def train_phase(seed: int, smi, keep=None):
     """Phase 16: training qwen2.5-3b on the card.  Returns (the phase's
     line, its path launches)."""
     from repro_torch.configs import get_config
@@ -3014,7 +3081,7 @@ def train_phase(seed: int, smi):
     out["trainer_2_layers"] = train_recovery(cfg, seed)
     out["trainer_2_layers"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["first_moments_2_layers"] = train_first_moments(cfg, seed)
+    out["first_moments_2_layers"] = train_first_moments(seed, keep)
     out["first_moments_2_layers"]["seconds"] = time.perf_counter() - t0
     path_launches = {"train/ref": launches}
     check_launches(path_launches)
@@ -4205,6 +4272,370 @@ def launch_phase(seed: int, smi, traces=None):
     return out, path_launches
 
 
+# phase 21 (ranks): the mesh over the ranks of a process group.  NCCL over
+# every card (this process is rank 0, one spawned rank on each further
+# card), then gloo over RANKS_GLOO spawned ranks sharing the cards (rank r
+# on card r % count), each loading the fixture index file.  RANK_CASES are
+# the walker meshes (name, shape, visited mode), split over the ranks by
+# rank_grid, each held to phase 14's lanes answer; the corpus path on
+# (1, N_SHARDS) loads phase 14's shards; the compressed step on a 4-position
+# data axis is held to phase 16's 4-lane digests.
+RANK_CASES = (("1x4_bitmap", (1, 4), "bitmap"),
+              ("2x4_bitmap", (2, 4), "bitmap"),
+              ("1x4_hash", (1, 4), "hash"))
+RANKS_GLOO = 4
+RANK_REPS = 2                 # timed batches a case after the counted one
+RANK_TIMEOUT_S = 240          # a process group's collectives
+RANK_JOIN_S = 300             # a spawned rank's join
+
+
+def device_digest(tensors) -> str:
+    """sha256 of per-tensor checksums computed on the tensors' device: the
+    sum of the 32-bit words (as unsigned) and their sum weighted by
+    position (mod 2^31 − 1), exact and independent of the reduction's
+    order; any changed word changes the first, a moved one the second.
+    Not a sha256 of the host bytes: phases 16 and 21 digest the whole f32
+    state of a 2-layer qwen2.5-3b (0.47 G parameters, and a residual row
+    of the same size for each of the 4 lanes) in five processes, bytes
+    that a host copy and a one-thread hash would add to the phase's wall
+    many times over."""
+    import hashlib
+    import torch
+    parts, p = [], 2**31 - 1
+    for t in tensors:
+        x = t.detach().reshape(-1)
+        x = x.view(torch.int32) if x.element_size() == 4 else x.to(
+            torch.int32)
+        acc = torch.zeros(2, dtype=torch.int64, device=x.device)
+        for lo in range(0, x.numel(), 1 << 24):
+            c = x[lo:lo + (1 << 24)].to(torch.int64) & 0xFFFFFFFF
+            w = torch.arange(lo, lo + c.numel(), device=c.device) % 65521 + 1
+            acc = (acc + torch.stack([c.sum() % p, (c * w % p).sum() % p])
+                   ) % p
+        parts.append(acc.cpu().numpy().tobytes())
+    return hashlib.sha256(b"".join(parts)).hexdigest()
+
+
+def compressed_digests(state, metrics) -> dict:
+    """Digests of a 4-lane compressed step's new parameters and of each
+    lane's residual rows, with its loss and grad norm (phase 21's bar)."""
+    return {"params": device_digest([x for _, x in
+                                     _leaf_items(state.params)]),
+            "err": [device_digest([e[i] for _, e in _leaf_items(state.err)])
+                    for i in range(4)],
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"])}
+
+
+def _timed(fn, *args):
+    """(fn(*args), its synced wall ms)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rank_compressed(dev, world: int, seed: int, reshard: bool):
+    """Phase 21, one rank: phase 16's compressed step (qwen2.5-3b at full
+    width, 2 layers, f32, one batch of 8 × 64 tokens, the same weights)
+    on a 4-position ``data`` axis over ``world`` ranks: its wall, loss,
+    grad norm and digests (the parameters; each of this rank's residual
+    rows, by global lane).  With ``reshard``: ``reshard_state`` of the new
+    parameters and optimizer state (the same on every rank; the residual
+    rows are each rank's own) over ranks (world, 1), then (1, world), then
+    onto one device, their digests unchanged."""
+    import torch
+    from repro_torch.core.distributed import make_search_mesh
+    from repro_torch.launch.mesh import rank_grid
+    from repro_torch.runtime import reshard_state
+    from repro_torch.sharding import whole
+    from repro_torch.train.train_step import (TrainState,
+                                              make_compressed_dp_train_step)
+
+    grid = rank_grid(4, 1, world)
+    if grid is None:
+        return {"skipped": f"4 data positions do not split over {world} "
+                           "ranks"}
+    model, tcfg, state, batch = compressed_setup(seed, dev)
+    mesh = make_search_mesh((4, 1), ranks=grid)
+    (new, m), ms = _timed(make_compressed_dp_train_step(model, tcfg, mesh),
+                          state, batch)
+    del state
+    lanes, c = 4 // grid[0], mesh.coord("data")
+
+    def digest(tree):
+        return device_digest([whole(x) for _, x in _leaf_items(tree)])
+    out = {"ranks": list(grid), "ms": ms, "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]),
+           "params": digest(new.params),
+           "err": {c * lanes + i: device_digest(
+               [e.to_local()[i] for _, e in _leaf_items(new.err)])
+               for i in range(lanes)}}
+    if reshard:
+        new = TrainState(new.params, new.opt, None)
+        first = (out["params"], digest(new.opt))
+        t0, moved = time.perf_counter(), True
+        for mesh in (make_search_mesh((world, 1), ranks=(world, 1)),
+                     make_search_mesh((1, world), ranks=(1, world)),
+                     make_search_mesh((1, 1), device=dev)):
+            new = reshard_state(new, mesh)
+            moved &= (digest(new.params), digest(new.opt)) == first
+        torch.cuda.synchronize()
+        out["reshard"] = {"meshes": [[world, 1], [1, world], "one device"],
+                          "leaves": "params, opt",
+                          "seconds": time.perf_counter() - t0,
+                          "unchanged": moved}
+    del new, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_body(rank: int, world: int, backend: str, card: str,
+              job: dict) -> dict:
+    """Phase 21, one rank of a ``backend`` group of ``world`` ranks on
+    ``card``: the fixture index loaded from its file, the walker path on
+    each of RANK_CASES through rowgather (64 queries; the counted batch
+    and RANK_REPS timed ones), the corpus path on (1, N_SHARDS) over this
+    rank's block of phase 14's shards, and :func:`rank_compressed`.
+    Returns the answers (on the host), launches and walls."""
+    import datetime
+    import torch
+    from repro_torch import ranks
+    from repro_torch.ann import AnnIndex
+    from repro_torch.core.distributed import (ShardedIndex,
+                                              corpus_sharded_search,
+                                              local_shards, make_search_mesh)
+    from repro_torch.launch.mesh import rank_grid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_start = time.perf_counter()
+    dev = ranks.init_ranks(
+        device=card, backend=backend, rank=rank, world=world,
+        init_method=f"file://{job['dir']}/rdv_{backend}",
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    out = {"rank": rank, "device": str(dev), "backend": ranks.backend(),
+           "transport": ranks.transport(), "walker": {}}
+    try:
+        index = AnnIndex.load(job["index"], device=dev)
+        q = torch.from_numpy(np.load(job["queries"])).to(dev)
+        params = smoke_params().with_(algorithm="sharded",
+                                      backend="rowgather")
+        out["setup_seconds"] = time.perf_counter() - t_start
+        for name, shape, mode in RANK_CASES:
+            grid = rank_grid(*shape, world)
+            if grid is None:
+                out["walker"][name] = {"skipped": f"{shape} does not split "
+                                                  f"over {world} ranks"}
+                continue
+            fn = index.searcher(params.with_(visited_mode=mode),
+                                mesh=make_search_mesh(shape, ranks=grid))
+            (res, ms), launches = counted(_timed, fn, q)
+            out["walker"][name] = {
+                "ranks": list(grid), "answer": _cpu_result(res),
+                "launches": launches,
+                "batch_ms": [ms] + batch_walls(lambda: fn(q), RANK_REPS)}
+        del index, fn
+        torch.cuda.empty_cache()
+        grid = rank_grid(1, N_SHARDS, world)
+        if grid is None:
+            out["corpus"] = {"skipped": f"{N_SHARDS} shards do not split "
+                                        f"over {world} ranks"}
+        else:
+            mesh = make_search_mesh((1, N_SHARDS), ranks=grid)
+            shards = ShardedIndex(**torch.load(job["shards"], mmap=True))
+            block = ShardedIndex(*(t.to(dev) for t in
+                                   local_shards(shards, mesh)))
+            cfg = smoke_params().with_(
+                backend="rowgather", max_steps=CORPUS_MAX_STEPS
+            ).to_search_config("l2").with_(m_max=1, staged=False,
+                                           num_walkers=1)
+            ((ids, dists), ms), launches = counted(
+                _timed, corpus_sharded_search, block, q, cfg, mesh)
+            out["corpus"] = {"ranks": list(grid),
+                             "shards_here": block.num_shards,
+                             "answer": (ids.cpu(), dists.cpu()),
+                             "launches": launches, "batch_ms": [ms]}
+            del block, shards
+            torch.cuda.empty_cache()
+        out["compressed"] = rank_compressed(dev, world, job["seed"],
+                                            reshard=backend == "nccl")
+    finally:
+        ranks.shutdown()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def _rank_entry(rank, world, backend, card, job, path):
+    import torch
+    torch.save(rank_body(rank, world, backend, card, job), path)
+
+
+def run_ranks(backend: str, world: int, cards, job: dict, in_process: bool):
+    """:func:`rank_body` on ``world`` ranks of a ``backend`` group (rank r
+    on ``cards[r]``): rank 0 in this process when ``in_process``, the
+    others spawned.  A rank that fails, or outlives RANK_JOIN_S, fails the
+    phase; the others are killed."""
+    import multiprocessing
+    import torch
+    ctx = multiprocessing.get_context("spawn")
+    paths = {r: os.path.join(job["dir"], f"{backend}_rank{r}.pt")
+             for r in range(world)}
+    procs = {r: ctx.Process(target=_rank_entry, args=(
+        r, world, backend, cards[r], job, paths[r]))
+        for r in range(1 if in_process else 0, world)}
+    for p in procs.values():
+        p.start()
+    try:
+        outs = [rank_body(0, world, backend, cards[0], job)] \
+            if in_process else []
+        for r, p in procs.items():
+            p.join(RANK_JOIN_S)
+            if p.is_alive() or p.exitcode != 0:
+                raise AssertionError(f"{backend} rank {r} of {world}: "
+                                     + ("still runs after "
+                                        f"{RANK_JOIN_S} s" if p.is_alive()
+                                        else f"exit code {p.exitcode}"))
+            outs.append(torch.load(paths[r], weights_only=False))
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    return outs
+
+
+def check_ranks(outs, keep, label: str) -> dict:
+    """Every rank's answers equal phase 14's lanes answers (ids, dists, the
+    8 counters; corpus ids and dists) and phase 16's step (digests, loss,
+    grad norm); every path launched l2dist_rowgather and no other kernel.
+    Returns the part's summary and its launches by path."""
+    import torch
+    summary, launches, lanes_seen = {"cases": {}}, {}, set()
+    for o in outs:
+        for name, got in list(o["walker"].items()) + [
+                ("corpus", o["corpus"])]:
+            if "skipped" in got:
+                summary["cases"][name] = got
+                continue
+            want = (keep["walker"][name] if name != "corpus"
+                    else keep["corpus"])
+            a = got["answer"]
+            same_ = all(torch.equal(x, y) for x, y in zip(a[:2], want[:2]))
+            if name != "corpus":
+                same_ = same_ and all(torch.equal(a[2][f], want[2][f])
+                                      for f in want[2])
+            if not same_:
+                raise AssertionError(f"{label} rank {o['rank']}: {name} "
+                                     "differs from the lanes run")
+            launches[f"ranks_{label}_{name}_rank{o['rank']}/rowgather"] = \
+                got["launches"]
+            case = summary["cases"].setdefault(
+                name, {"ranks": got["ranks"], "equal_to_lanes": True,
+                       "batch_ms": {}})
+            case["batch_ms"][o["rank"]] = got["batch_ms"]
+        c = o["compressed"]
+        if "skipped" in c:
+            summary["compressed"] = c
+            continue
+        want = keep["compressed"]
+        if (c["params"] != want["params"] or c["loss"] != want["loss"]
+                or c["grad_norm"] != want["grad_norm"]
+                or any(d != want["err"][i] for i, d in c["err"].items())
+                or not c.get("reshard", {}).get("unchanged", True)):
+            raise AssertionError(f"{label} rank {o['rank']}: the compressed "
+                                 f"step differs from phase 16's ({c})")
+        lanes_seen |= set(c["err"])
+        summary.setdefault("compressed", {"ranks": c["ranks"], "ms": {},
+                                          "equal_to_lanes": True})
+        summary["compressed"]["ms"][o["rank"]] = c["ms"]
+        if "reshard" in c:
+            summary["compressed"].setdefault("reshard", {})[o["rank"]] = \
+                c["reshard"]
+    if "ms" in summary.get("compressed", {}) and lanes_seen != set(range(4)):
+        raise AssertionError(f"{label}: residual lanes {lanes_seen}")
+    check_launches(launches)
+    for case in summary["cases"].values():
+        if "batch_ms" in case:
+            case["p50_batch_ms"] = float(np.median(
+                [w for ws in case["batch_ms"].values() for w in ws]))
+    summary.update(world=len(outs), backend=outs[0]["backend"],
+                   transport=outs[0]["transport"],
+                   devices=[o["device"] for o in outs],
+                   rank_seconds=[o["seconds"] for o in outs],
+                   setup_seconds=[o["setup_seconds"] for o in outs])
+    return summary, launches
+
+
+def ranks_alone(seed: int, smi):
+    """Phase 21 alone (``scripts/chip_phase.py ranks``): its inputs made by
+    the phases that make them in :func:`main` (5: the 1M fixture index
+    file; 14: the lanes answers and the corpus shards; 16's first steps:
+    the 4-lane compressed step's digests), then :func:`ranks_phase`."""
+    import torch
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        index, queries, facts = build_index(seed, work)
+        keep = {"index": facts["index_path"],
+                "shards": os.path.join(work, "corpus_shards.pt"),
+                "queries64": queries[:64].cpu().numpy()}
+        gt, _ = index.exact(queries[:256], 10)
+        sharded_phase(index, facts["base"], queries, gt, smi, keep)
+        del index
+        torch.cuda.empty_cache()
+        train_first_moments(seed, keep)
+        return ranks_phase(seed, smi, keep, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def ranks_phase(seed: int, smi, keep: dict, work: str):
+    """Phase 21: the port's mesh over the ranks of a process group, held
+    to the lanes runs of phases 14 and 16.  NCCL over every card (this
+    process rank 0); then gloo over RANKS_GLOO ranks sharing the cards,
+    unless the compute mode forbids sharing a card.  Returns (the phase's
+    line, its path launches)."""
+    import torch
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    modes = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()
+    queries = os.path.join(work, "queries64.npy")
+    job = {"dir": work, "seed": seed, "index": keep["index"],
+           "queries": queries, "shards": keep["shards"]}
+    np.save(queries, keep["queries64"])
+    out = {"phase": "ranks", "cards": count, "compute_mode": modes}
+    if count < 2:
+        out["unverified"] = ("one card: NCCL runs a world of 1 (the walkers "
+                             "as lanes through the NCCL code path); a mesh "
+                             "over several cards waits for "
+                             "device_count() >= 2")
+    nccl = run_ranks("nccl", count, [f"cuda:{r}" for r in range(count)],
+                     job, in_process=True)
+    out["nccl"], launches = check_ranks(nccl, keep, "nccl")
+    out["nccl"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if any(m not in ("Default", "Shared") for m in modes):
+        out["gloo"] = {"skipped": f"compute mode {modes} forbids {RANKS_GLOO} "
+                                  "processes sharing a card"}
+    else:
+        t1 = time.perf_counter()
+        gloo = run_ranks("gloo", RANKS_GLOO,
+                         [f"cuda:{r % count}" for r in range(RANKS_GLOO)],
+                         job, in_process=False)
+        out["gloo"], more = check_ranks(gloo, keep, "gloo")
+        out["gloo"]["seconds"] = time.perf_counter() - t1
+        launches.update(more)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = smi
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4230,7 +4661,6 @@ def main() -> int:
             emit(row)
         print(smi, flush=True)
         return 0
-    from repro_torch.core import recall_at_k
     from repro_torch.kernels import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4252,6 +4682,19 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "ptxas": ptxas})
 
+    # files phase 21's ranks load: the index, phase 14's shards, queries
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(args, work, t_start, name, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(args, work: str, t_start: float, name: str, smi) -> int:
+    """Phases 3-21 of :func:`main` (files under ``work``)."""
+    import torch
+    from repro_torch.core import recall_at_k
+
     t0 = time.perf_counter()
     err, cases = check_kernels(args.seed)
     err2, cases2 = check_quant_sort_kernels(args.seed)
@@ -4264,7 +4707,10 @@ def main() -> int:
           "tolerance": {"f32": 1e-5, "bf16": 2e-2, "integer": "exact",
                         "int8": "exact", "sort_pairs": "exact"}})
 
-    index, queries, facts = build_index(args.seed)
+    index, queries, facts = build_index(args.seed, work)
+    keep = {"index": facts["index_path"],
+            "shards": os.path.join(work, "corpus_shards.pt"),
+            "queries64": queries[:64].cpu().numpy()}
     emit({"phase": "data", **facts["data"]})
     emit({"phase": "graph", **facts["graph"]})
     params = smoke_params()
@@ -4391,7 +4837,7 @@ def main() -> int:
     del qindex
     torch.cuda.empty_cache()
     sharded, shard_launches = sharded_phase(index, facts["base"], queries,
-                                            gt, smi)
+                                            gt, smi, keep)
     emit(sharded)
     for row in rows:
         # the sharded paths (walker and corpus, the corpus build included)
@@ -4416,11 +4862,18 @@ def main() -> int:
         n = sum(c[row["name"]] for c in knn_launches.values())
         if n:
             row["launches_knnlm"] = n
-    trained, train_launches = train_phase(args.seed, smi)
+    trained, train_launches = train_phase(args.seed, smi, keep)
     emit(trained)
     for row in rows:
         # the training path launches none of the six kernels
         row["launches_train"] = train_launches["train/ref"][row["name"]]
+    ranked, rank_launches = ranks_phase(args.seed, smi, keep, work)
+    emit(ranked)
+    del keep
+    for row in rows:
+        # every rank's walker and corpus paths launch rowgather alone
+        row["launches_ranks"] = sum(c[row["name"]]
+                                    for c in rank_launches.values())
     moe, moe_launches = moe_phase(args.seed, smi)
     emit(moe)
     for row in rows:

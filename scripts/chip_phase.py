@@ -6,7 +6,9 @@ flags its ``main`` sets, and print the phase's line.
 
 Phases: ``train`` (16), ``moe`` (17), ``ssm`` (18), ``encdec`` (19) and
 ``launch`` (20): the ones that need no index (``launch`` builds the rowgather
-kernel at its first launch).  Needs one CUDA device.
+kernel at its first launch); ``ranks`` (21) first runs the phases that
+make its inputs (4-5, 14 and 16's first steps; ``chip_smoke.ranks_alone``).
+Needs a CUDA device.
 """
 import argparse
 import json
@@ -21,7 +23,8 @@ sys.path.insert(0, ROOT)
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("phase",
-                    choices=("train", "moe", "ssm", "encdec", "launch"))
+                    choices=("train", "moe", "ssm", "encdec", "launch",
+                             "ranks"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch
@@ -36,7 +39,9 @@ def main() -> int:
     print(json.dumps({"card": smi, "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
     t0 = time.perf_counter()
-    out, launches = getattr(cs, f"{args.phase}_phase")(args.seed, smi)
+    run = (cs.ranks_alone if args.phase == "ranks"
+           else getattr(cs, f"{args.phase}_phase"))
+    out, launches = run(args.seed, smi)
     print(json.dumps(out, default=str))
     print(json.dumps({"launches": launches,
                       "wall_s": time.perf_counter() - t0}), flush=True)

@@ -28,11 +28,13 @@ hnsw index descends its upper levels first) over every distance backend
 and metric, with cosine query normalization, the tombstone mask, exact
 re-ranking and the neighbor-grouping id remap, in the reference's order.
 "sharded" is the walker-sharded path of :mod:`repro_torch.core.distributed`
-on a :class:`~repro_torch.core.distributed.SearchMesh` whose positions all
-sit on the index's device::
+on a :class:`~repro_torch.core.distributed.SearchMesh` whose positions sit
+on the index's device, or are laid over the ranks of a process group
+(every rank loads the index on its card and searches the same queries)::
 
     mesh = make_search_mesh((1, 4), device=index.device)   # 4 walkers
     res = index.search(queries, SearchParams(algorithm="sharded"), mesh=mesh)
+    # torchrun, 4 ranks: init_ranks(); make_search_mesh((1, 4), ranks=(1, 4))
 
 Quantized storage: :func:`quantize_graph` attaches int8 codes + scales (or
 bf16 codes) to a graph, and ``SearchParams(rerank_k=...)`` makes a search
@@ -67,6 +69,7 @@ from repro_torch.core.graph import (PaddedCSR, _flatten_top, compute_medoid,
                                     group_by_indegree, remap_sentinels)
 from repro_torch.core.queue import _sort_by
 from repro_torch.core.speedann import search_speedann_batch
+from repro_torch import ranks as rank_mod
 from repro_torch.device import resolve_device
 from repro_torch.quant import codec as quant_codec
 from repro_torch.quant.scheme import required_quant_dtype
@@ -82,10 +85,19 @@ class SearchResult(NamedTuple):
 
 
 def default_search_mesh(device) -> SearchMesh:
-    """The (data=1, model=1) mesh on ``device`` for the "sharded"
-    algorithm when the caller gives none: the reference's default
-    (1, n_devices) mesh on one card — one walker, the same code path."""
-    return make_search_mesh((1, 1), ("data", "model"), device=device)
+    """The mesh of the "sharded" algorithm when the caller gives none: the
+    reference's default (1, n_devices).  With a process group up
+    (``ranks.init_ranks``) it is (1, world) over the ranks, one walker a
+    rank (every rank makes it the first time it searches); otherwise the
+    (1, 1) mesh on ``device``: one walker, the same code path."""
+    if not rank_mod.is_up():
+        return make_search_mesh((1, 1), ("data", "model"), device=device)
+    state = rank_mod._STATE
+    if state["search_mesh"] is None:
+        world = rank_mod.world()
+        state["search_mesh"] = make_search_mesh(
+            (1, world), ("data", "model"), ranks=(1, world))
+    return state["search_mesh"]
 
 
 def normalize_queries(q: torch.Tensor) -> torch.Tensor:

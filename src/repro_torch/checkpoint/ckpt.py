@@ -13,6 +13,15 @@ leaf takes the dtype and device of the matching leaf of ``like``.
 
 ``CheckpointManager`` adds background-thread saves after a synchronous
 snapshot to the host, and keep-last-k garbage collection.
+
+Over ranks (a process group up): every rank gathers the whole value of
+each DTensor leaf (the compressed step's residuals among them: every data
+rank's rows, in lane order), rank 0 alone writes (synchronously) and the
+others wait at a barrier; ``load_checkpoint(..., shardings=)`` places each
+restored leaf by its ``sharding.RankSharding``, as the reference
+device_puts against its shardings.  Restored without one, a leaf is the
+whole value on every rank (the compressed step takes each rank's block of
+residual rows from it).
 """
 from __future__ import annotations
 
@@ -25,7 +34,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from repro_torch import ranks as rank_mod
 from repro_torch.npio import dtype_name, from_numpy, to_numpy
+from repro_torch.sharding import place, whole
 from repro_torch.treepath import (flatten_with_path, keystr_simple,
                                   tree_map, tree_map_with_path)
 
@@ -34,11 +45,27 @@ def _flatten(tree) -> Dict[str, Any]:
             for path, leaf in flatten_with_path(tree)}
 
 
+def _host(x):
+    """A leaf's whole value, copied to the host."""
+    return whole(x).detach().to("cpu", copy=True)
+
+
 def save_checkpoint(directory: str, step: int, tree,
                     extra: Optional[dict] = None) -> str:
-    """Atomic save: write to tmp, rename."""
-    flat = _flatten(tree)
+    """Atomic save: write to tmp, rename.  Over ranks every rank calls it;
+    rank 0 writes and the others wait for it."""
     target = os.path.join(directory, f"step_{step:08d}")
+    if rank_mod.is_up():
+        host = tree_map(_host, tree)
+        if rank_mod.rank() == 0:
+            _write(target, step, host, extra)
+        rank_mod.barrier()
+        return target
+    return _write(target, step, tree, extra)
+
+
+def _write(target: str, step: int, tree, extra: Optional[dict]) -> str:
+    flat = _flatten(tree)
     tmp = target + f".tmp.{os.getpid()}.{int(time.time() * 1e6)}"
     os.makedirs(tmp, exist_ok=True)
     arrays = {k: to_numpy(v) for k, v in flat.items()}
@@ -71,14 +98,28 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def load_checkpoint(directory: str, step: int, like):
-    """Restore into the structure of ``like``: each leaf read by its key
-    and put on that leaf's device in that leaf's dtype."""
+def load_checkpoint(directory: str, step: int, like, shardings=None):
+    """Restore into the structure of ``like``: each leaf read by its key in
+    that leaf's dtype, and put on that leaf's device, or placed by the
+    matching leaf of ``shardings`` (a tree of ``sharding.RankSharding``,
+    as ``param_shardings`` gives; elastic restore onto a mesh of ranks)."""
     path = os.path.join(directory, f"step_{step:08d}", "arrays.npz")
+    by_key = {} if shardings is None else _flatten(shardings)
+
+    def one(p, ref):
+        key = keystr_simple(p)
+        x = from_numpy(data[key]).to(dtype=ref.dtype)
+        if key in by_key:
+            return place(x, by_key[key])
+        return x.to(device=_device_of(ref))
+
     with np.load(path) as data:
-        return tree_map_with_path(
-            lambda p, ref: from_numpy(data[keystr_simple(p)]).to(
-                device=ref.device, dtype=ref.dtype), like)
+        return tree_map_with_path(one, like)
+
+
+def _device_of(x):
+    """The device of a leaf (a DTensor's part on this rank)."""
+    return x.to_local().device if hasattr(x, "to_local") else x.device
 
 
 class CheckpointManager:
@@ -104,13 +145,21 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: Optional[dict] = None):
         # snapshot to the host synchronously (a copy, also of CPU tensors
         # that the next step updates in place), write in the background
-        host_tree = tree_map(lambda x: x.detach().to("cpu", copy=True),
-                             tree)
+        host_tree = tree_map(_host, tree)
         self.wait()
 
         def work():
-            save_checkpoint(self.directory, step, host_tree, extra)
+            _write(os.path.join(self.directory, f"step_{step:08d}"), step,
+                   host_tree, extra)
             self._gc()
+
+        if rank_mod.is_up():
+            # rank 0 writes while the others wait: no collective may run
+            # from a background thread
+            if rank_mod.rank() == 0:
+                work()
+            rank_mod.barrier()
+            return
 
         def background():
             try:

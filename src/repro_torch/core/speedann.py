@@ -45,15 +45,22 @@ class _GlobalState(NamedTuple):
     stats: SearchStats        # leaves (B,)
 
 
+def metrics_fire(total: torch.Tensor, count: torch.Tensor,
+                 cfg: SearchConfig) -> torch.Tensor:
+    """Algorithm 2's test per query: ū = ``total`` / ``count`` ≥ L·R, for
+    ``total`` (B,) the active walkers' update positions summed and
+    ``count`` (B,) their number (at least 1) -> (B,) bool."""
+    return total.float() / count.float() >= cfg.queue_len * cfg.sync_ratio
+
+
 def check_metrics(up_pos: torch.Tensor, active: torch.Tensor,
                   cfg: SearchConfig) -> torch.Tensor:
     """Algorithm 2 per query: ū ≥ L·R over the ``active`` lowest-index
     walkers.  ``up_pos`` (B, W), ``active`` (B,) -> (B,) bool."""
     w = up_pos.shape[-1]
     is_active = torch.arange(w, device=up_pos.device) < active[..., None]
-    total = torch.where(is_active, up_pos, 0).sum(dim=-1).float()
-    count = is_active.sum(dim=-1).clamp(min=1).float()
-    return total / count >= cfg.queue_len * cfg.sync_ratio
+    return metrics_fire(torch.where(is_active, up_pos, 0).sum(dim=-1),
+                        is_active.sum(dim=-1).clamp(min=1), cfg)
 
 
 def _local_segment_batch(graph, queries: torch.Tensor, locals_: fq.Frontier,

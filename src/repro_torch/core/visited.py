@@ -167,18 +167,37 @@ def popcount(v: Visited) -> torch.Tensor:
     return (t0 != _EMPTY).sum(dim=-1, dtype=torch.int32)
 
 
-def merge_visited(vs: Visited) -> Visited:
+def merge_visited(vs: Visited, walkers=None) -> Visited:
     """OR-merge the walker maps of a (B, W, X) stacked map at a global sync,
     in place.  Bitmap: exact OR.  Hash: walker 0's table, with empty slots
-    filled from walkers 1.. in order (losses are benign).  Loose: no-op."""
+    filled from walkers 1.. in order (losses are benign).  Loose: no-op.
+
+    ``walkers`` (a ``ranks.RankAxis``) spreads the walker axis over ranks,
+    each holding W / r walkers as lanes: the lanes are reduced first, then
+    the bitmap is a uint8 max over the ranks, and the hash tables are
+    gathered and folded in rank order ("first non-empty wins" is
+    associative, so this is the fold over walkers 0..W-1)."""
     if vs.mode_bitmap:
-        vs.table.copy_(vs.table.any(dim=1, keepdim=True).expand_as(vs.table))
+        merged = vs.table.any(dim=1)
+        if walkers is not None:
+            merged = walkers.all_reduce(merged.view(torch.uint8),
+                                        "max").view(torch.bool)
+        vs.table.copy_(merged[:, None].expand_as(vs.table))
         return vs
     if vs.mask == 0:
         return vs
-    merged = vs.table[:, 0].clone()
-    for w in range(1, vs.table.shape[1]):
-        t = vs.table[:, w]
-        merged = torch.where((merged == _EMPTY) & (t != _EMPTY), t, merged)
+    merged = _fold(vs.table)
+    if walkers is not None:
+        merged = _fold(walkers.gather(merged[:, None], 1))
     vs.table.copy_(merged[:, None].expand_as(vs.table))
     return vs
+
+
+def _fold(tables: torch.Tensor) -> torch.Tensor:
+    """(B, W, X) hash tables -> (B, X): table 0 with its empty slots filled
+    from tables 1.. in order."""
+    merged = tables[:, 0].clone()
+    for w in range(1, tables.shape[1]):
+        t = tables[:, w]
+        merged = torch.where((merged == _EMPTY) & (t != _EMPTY), t, merged)
+    return merged

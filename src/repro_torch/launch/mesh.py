@@ -1,13 +1,18 @@
 """Mesh construction (port of ``repro.launch.mesh``).
 
-Every position of a port mesh sits on one device
-(``core.distributed.SearchMesh``).  ``make_production_mesh`` gives the
-reference's pod layouts as lanes of one device, which is what the dry run
-(``launch.dryrun``) divides a cell's bytes by on the meta device; placing
-them over several cards is ROADMAP.md §1 item 8.
+A port mesh (``core.distributed.SearchMesh``) puts its positions on one
+device as lanes, or lays them over the ranks of a process group.
+``make_production_mesh`` gives the reference's pod layouts as lanes of one
+device, which is what the dry run (``launch.dryrun``) divides a cell's
+bytes by on the meta device; placing its 256 or 512 positions over as
+many cards is ROADMAP.md §1 item 8.  ``make_host_mesh`` lays its mesh over
+the group's ranks when one is up (``ranks.init_ranks``).
 """
 from __future__ import annotations
 
+import math
+
+from repro_torch import ranks as rank_mod
 from repro_torch.core.distributed import SearchMesh, make_search_mesh
 
 
@@ -22,8 +27,25 @@ def make_production_mesh(multi_pod: bool = False,
     return make_search_mesh(shape, axes, device=device)
 
 
+def rank_grid(data: int, model: int, world: int):
+    """Ranks along (data, model) for a (data, model) mesh over ``world``
+    ranks: as many on ``data`` as divide it, the rest on ``model``; None
+    when they do not divide ``model``."""
+    r_data = math.gcd(data, world)
+    return None if model % (world // r_data) else (r_data, world // r_data)
+
+
 def make_host_mesh(data: int = 1, model: int = 1,
                    device=None) -> SearchMesh:
-    """A (data, model) mesh whose positions are lanes of ``device``
+    """A (data, model) mesh: with a process group up, over its ranks
+    (:func:`rank_grid`; each rank's device), else as lanes of ``device``
     (default CUDA)."""
-    return make_search_mesh((data, model), ("data", "model"), device=device)
+    if not rank_mod.is_up():
+        return make_search_mesh((data, model), ("data", "model"),
+                                device=device)
+    grid = rank_grid(data, model, rank_mod.world())
+    if grid is None:
+        raise ValueError(f"a ({data}, {model}) mesh does not split over "
+                         f"{rank_mod.world()} ranks")
+    return make_search_mesh((data, model), ("data", "model"), device=device,
+                            ranks=grid)

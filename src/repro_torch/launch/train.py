@@ -4,14 +4,20 @@
         [--smoke] [--steps 100] [--data N] [--model M] [--compress] \\
         [--ckpt-dir DIR] [--device cpu]
 
+    torchrun --nproc-per-node R -m repro_torch.launch.train --arch ... \
+        --compress --data R               # int8 DP over R ranks, one a card
+
 Port of ``repro.launch.train``.  ``--device`` defaults to CUDA (and fails
-without a card); ``--device cpu`` trains on the CPU.  The mesh's positions
-are lanes of that one device (``--data`` splits the batch for
-``--compress``'s int8 all-reduce), and the run is inside
-``use_rules(DEFAULT_RULES, mesh)`` as the reference's is (the mesh a
-moe model's ``moe_ffn_sharded`` splits over under
-``set_moe_impl("a2a")``).  Checkpoints default to a directory under the
-temp dir.
+without a card); ``--device cpu`` trains on the CPU.  Started by torchrun
+(``WORLD_SIZE`` set; the reference's ``JAX_COORDINATOR`` branch) each
+process joins the group as a rank (``ranks.init_ranks``: NCCL, one card a
+rank; gloo with ``--device cpu``) and the mesh is laid over the ranks;
+otherwise its positions are lanes of the one device.  ``--data`` splits the
+batch for ``--compress``'s int8 all-reduce; rank 0 prints and writes the
+checkpoints.  The run is inside ``use_rules(DEFAULT_RULES, mesh)`` as the
+reference's is (the mesh a moe model's ``moe_ffn_sharded`` splits over
+under ``set_moe_impl("a2a")``; a mesh over ranks it refuses).  Checkpoints default to a directory under
+the temp dir.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import argparse
 import os
 import tempfile
 
+from repro_torch import ranks as rank_mod
 from repro_torch.config import TrainConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.tokens import TokenStream
@@ -30,7 +37,7 @@ from repro_torch.train import Trainer
 from repro_torch.train.train_step import make_compressed_dp_train_step
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -46,7 +53,10 @@ def main(argv=None) -> None:
                     help="torch device (default: CUDA; 'cpu' trains on the "
                          "CPU)")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ or rank_mod.is_up():
+        device = rank_mod.init_ranks(device=args.device)
+    else:
+        device = resolve_device(args.device)
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     model = build_model(cfg, device=device)
@@ -67,7 +77,10 @@ def main(argv=None) -> None:
         trainer = Trainer(model, tcfg, stream, train_step=step)
         trainer.run(steps=args.steps)
     losses = [m["loss"] for m in trainer.metrics_log]
-    print(f"done: arch={cfg.name} loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    if rank_mod.rank() == 0:
+        print(f"done: arch={cfg.name} loss {losses[0]:.3f} -> "
+              f"{losses[-1]:.3f}")
+    return losses
 
 
 if __name__ == "__main__":

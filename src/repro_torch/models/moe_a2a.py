@@ -39,7 +39,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.distributed import check_mesh_device
+from repro_torch.core.distributed import MULTI_CARD_ITEM, check_mesh_device
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe import (combine, dispatch, expert_counts,
                                     rank_within, route, swiglu_experts)
@@ -231,10 +231,16 @@ def moe_ffn_sharded(p, x: torch.Tensor, cfg: ModelConfig
 
     Tokens split over ``token_axes`` in row-major order of their positions
     (the reference's in_spec ``P(token_axes, None)``) and are joined back
-    in that order."""
+    in that order.  A mesh over ranks raises: its ``all_to_all`` over the
+    ranks is not ported, and every rank would run every position."""
     mesh = _active_mesh.get()
     if mesh is None:
         return moe_mod.moe_ffn(p, x, cfg)
+    if mesh.over_ranks:
+        raise NotImplementedError(
+            "the MoE all_to_all over ranks is not ported (ROADMAP.md §1 "
+            f"item {MULTI_CARD_ITEM}): run the a2a layers on a lanes-only "
+            "mesh, or set_moe_impl('gspmd')")
     check_mesh_device(mesh, x.device)
 
     b, s, d = x.shape

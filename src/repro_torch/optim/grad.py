@@ -2,10 +2,11 @@
 feedback (port of ``repro.optim.grad``).
 
 ``compressed_psum`` is the reference's all-reduce over a ``data`` mesh
-axis with its positions as lanes of one device: every leaf carries a
-leading lane axis, one row per position, and the collectives become
-reductions over it.  The int8 payload, its common scale and each lane's
-residual are the reference's.
+axis.  Every leaf carries a leading lane axis, one row per position of
+the axis on this device; over ranks (``axis``, a ``ranks.RankAxis``) the
+lanes are reduced first and then the ranks: the scale by a float max, the
+payload by an int32 sum, both exact in any order.  The int8 payload, its
+common scale and each lane's residual are the reference's.
 """
 from __future__ import annotations
 
@@ -54,25 +55,34 @@ def int8_decompress(q_tree, scales):
     return tree_map(lambda q, s: q.float() * s, q_tree, scales)
 
 
-def compressed_psum(grads, error=None):
-    """int8-quantized all-reduce over lanes, with error feedback.
+def compressed_psum(grads, error=None, axis=None):
+    """int8-quantized all-reduce over lanes (and ``axis``'s ranks), with
+    error feedback.
 
     Every leaf of ``grads`` is (n, ...): one row per position of the
-    ``data`` axis.  ``error`` (optional) holds each lane's residual from
-    the last step, (n, ...) or broadcast from one (...) residual.  All
-    lanes share one per-leaf scale (the reference's scalar ``pmax``),
-    quantize their residual-corrected grads against it, and the int8
-    payloads are summed in int32 and dequantized.  Returns (the mean
-    grads, (...) per leaf; each lane's new residual, (n, ...))."""
+    ``data`` axis on this rank.  ``error`` (optional) holds each lane's
+    residual from the last step, (n, ...) or broadcast from one (...)
+    residual.  All lanes of all ranks share one per-leaf scale (the
+    reference's scalar ``pmax``), quantize their residual-corrected grads
+    against it, and the int8 payloads are summed in int32 and dequantized.
+    Returns (the mean grads, (...) per leaf; each of this rank's lanes'
+    new residual, (n, ...))."""
     if error is not None:
         grads = tree_map(lambda g, e: g.float() + e, grads, error)
     grads = tree_map(lambda g: g.float(), grads)
+    ranks = 1 if axis is None else axis.size
 
     def one(g):
         n = g.shape[0]
         per_lane = torch.clamp(g.abs().reshape(n, -1).amax(dim=1), min=1e-12)
-        scale = per_lane.max() / 127.0
+        top = per_lane.max()
+        if axis is not None:
+            top = axis.all_reduce(top, "max")
+        scale = top / 127.0
         q = _int8(g, scale)
-        mean = q.to(torch.int32).sum(dim=0).float() * scale / n
+        total = q.to(torch.int32).sum(dim=0)
+        if axis is not None:
+            total = axis.all_reduce(total, "sum")
+        mean = total.float() * scale / (n * ranks)
         return mean, g - q.float() * scale
     return tree_unzip(one, 2, grads)

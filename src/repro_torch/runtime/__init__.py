@@ -1,5 +1,5 @@
-"""Runtime support (port of ``repro.runtime``).  ``elastic.py``
-(re-sharding a restored state onto another mesh) waits for a mesh over
-several cards: ROADMAP.md §1 item 8."""
+"""Runtime support (port of ``repro.runtime``): failure injection and
+elastic re-sharding onto another mesh."""
+from repro_torch.runtime.elastic import reshard_state
 from repro_torch.runtime.failures import (FailureInjector,
                                           SimulatedWorkerFailure)

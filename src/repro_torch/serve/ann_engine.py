@@ -54,6 +54,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import ranks as rank_mod
 from repro_torch.ann.index import (AnnIndex, normalize_queries,
                                    remap_result_ids)
 from repro_torch.ann.spec import SearchParams
@@ -85,6 +86,12 @@ _ALGORITHMS = {
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+_OVER_RANKS = (
+    "serving over ranks is not ported (ROADMAP.md §1 item 8: a controller "
+    "that broadcasts each bucket to worker ranks); search a mesh over ranks "
+    "with index.search on every rank")
 
 
 def _mesh_data_size(mesh) -> int:
@@ -121,6 +128,8 @@ class AnnEngine:
     ):
         self.obs = obs if obs is not None else NULL_OBS
         self.index: Optional[AnnIndex] = None
+        if getattr(mesh, "over_ranks", False):
+            raise NotImplementedError(_OVER_RANKS)
         self.mesh = mesh
         self.mode = "single"
         self._normalize = False
@@ -186,6 +195,9 @@ class AnnEngine:
                     "walker-sharded path serves through the facade — "
                     "index.serve(SearchParams(algorithm='sharded'), "
                     "mesh=...)")
+            if mesh is None and rank_mod.is_up():
+                # the default mesh would be laid over the group's ranks
+                raise NotImplementedError(_OVER_RANKS)
             # walker-sharded mode: every bucket dispatches through the
             # facade's sharded searcher (core/distributed.py)
             self.mode = "sharded"

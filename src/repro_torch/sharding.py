@@ -13,27 +13,32 @@ A logical axis is dropped (replicated) when the tensor dimension is not
 divisible by the mesh axis size, as in the reference.
 
 The mesh is the port's :class:`~repro_torch.core.distributed.SearchMesh`,
-whose positions all sit on one device, and a spec is a plain tuple with
-the entries of the reference's ``PartitionSpec`` (a mesh axis name, a
-tuple of names, or None).  On such a mesh there is nothing to constrain:
-:func:`shard` returns its input, and the specs only name where each
-dimension would go.  ``use_rules``'s mesh is what
-``models.moe_a2a.moe_ffn_sharded`` splits its lanes by.  Placing
-parameters on a mesh over several devices (:func:`param_shardings`)
-raises, naming ROADMAP.md §1 item 8.
+and a spec is a plain tuple with the entries of the reference's
+``PartitionSpec`` (a mesh axis name, a tuple of names, or None).  Inside a
+computation there is nothing to constrain: :func:`shard` returns its
+input, and the specs only name where each dimension would go.
+``use_rules``'s mesh is what ``models.moe_a2a.moe_ffn_sharded`` splits its
+lanes by.  :func:`param_shardings` is the reference's ``NamedSharding``
+tree on a mesh laid over ranks: each leaf's spec as DTensor placements on
+the mesh's ``DeviceMesh`` (``Shard(i)`` on the mesh dims that split tensor
+dim i, ``Replicate()`` on the others), which :func:`place` applies.  On a
+lanes-only mesh, whose positions all sit on one device, it raises, naming
+ROADMAP.md §1 item 8.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import re
 from typing import Dict, Optional, Sequence, Tuple
 
 from repro_torch.treepath import keystr_simple, tree_map_with_path
 
-__all__ = ["ACT_RULES", "DEFAULT_RULES", "PARAM_RULES", "current_mesh",
-           "keystr_simple", "param_shardings", "param_specs",
-           "resolve_spec", "shard", "spec_for_path", "use_rules"]
+__all__ = ["ACT_RULES", "DEFAULT_RULES", "PARAM_RULES", "RankSharding",
+           "current_mesh", "keystr_simple", "param_shardings", "param_specs",
+           "place", "resolve_spec", "shard", "sharding_for", "spec_for_path",
+           "use_rules", "whole"]
 
 # logical axis -> mesh axis (or tuple of mesh axes)
 Rules = Dict[str, object]
@@ -207,10 +212,65 @@ def param_specs(params, mesh=None, rules: Optional[Rules] = None):
     return tree_map_with_path(one, params)
 
 
+@dataclasses.dataclass(frozen=True)
+class RankSharding:
+    """The port's ``NamedSharding``: a leaf's spec, and its DTensor
+    placements (one per mesh dim) on ``device_mesh``, this rank's part
+    held on ``device``."""
+    device_mesh: object
+    placements: tuple
+    spec: Spec
+    device: object
+
+
+def _placements(spec: Spec, axis_names: Sequence[str]) -> tuple:
+    """DTensor placements of a spec: per mesh axis, ``Shard(i)`` where
+    tensor dim i names the axis (alone or in a tuple, major axis first),
+    else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in axis_names:
+        dims = [i for i, e in enumerate(spec)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def sharding_for(path: str, shape: Tuple[int, ...], mesh,
+                 rules: Optional[Rules] = None) -> RankSharding:
+    """The :class:`RankSharding` of the leaf at ``path`` on ``mesh``."""
+    spec = spec_for_path(path, shape, mesh, rules)
+    return RankSharding(mesh.device_mesh, _placements(
+        spec, mesh.axis_names), spec, mesh.device)
+
+
 def param_shardings(params, mesh, rules: Optional[Rules] = None):
-    """The reference places each parameter on a mesh of several devices;
-    the port's mesh is lanes of one device, so this is not ported."""
-    raise NotImplementedError(
-        "placing parameters on a mesh over several cards is not ported "
-        "(ROADMAP.md §1 item 8): every position of the port's mesh sits on "
-        "one device, where param_specs names each leaf's axes")
+    """A tree of :class:`RankSharding` for a parameter tree on ``mesh``, a
+    mesh over ranks (the reference's ``NamedSharding(mesh, spec)`` tree).
+    Every rank calls it with the same tree."""
+    if not getattr(mesh, "over_ranks", False):
+        raise NotImplementedError(
+            "placing parameters needs a mesh over ranks (ROADMAP.md §1 item "
+            "8: make_search_mesh(..., ranks=...)): every position of a "
+            "lanes-only mesh sits on one device, where param_specs names "
+            "each leaf's axes")
+
+    def one(path, leaf):
+        return sharding_for(keystr_simple(path), tuple(leaf.shape), mesh,
+                            rules)
+    return tree_map_with_path(one, params)
+
+
+def place(x, sharding: RankSharding):
+    """``x`` (the whole value, the same on every rank) as a DTensor placed
+    by ``sharding``: each rank keeps its own part, nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x.to(sharding.device), sharding.device_mesh,
+                             sharding.placements, src_data_rank=None)
+
+
+def whole(x):
+    """A leaf's whole value: a DTensor gathered from its ranks (every rank
+    of its mesh calls this), anything else as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x

@@ -19,10 +19,15 @@ those tensors.  A caller that branches several steps from one state
 clones it first.  The values are the reference's functional step's.
 
 ``make_compressed_dp_train_step`` is the reference's explicit-DP step with
-the ``data`` axis's positions as lanes of one device: each lane takes its
-rows of the batch, its gradient goes through ``compressed_psum``, and
-``err`` keeps each lane's residual, (data, ...) per leaf (the reference
-keeps one per device).
+the ``data`` axis's positions as lanes: each lane takes its rows of the
+batch, its gradient goes through ``compressed_psum``, and ``err`` keeps
+each lane's residual, (n, ...) per leaf for the axis's n positions (the
+reference keeps one per device).  On a mesh over ranks every rank is given
+the whole batch, takes its block of rows and keeps its own lanes' residual
+rows, as a DTensor of the whole (n, ...) array split over the ``data``
+ranks, so a checkpoint gathers every rank's rows in lane order; the
+parameters stay replicated and come out of the step bit-identical on every
+rank, and bit for bit the lanes-only step's.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.core.distributed import SearchMesh, check_mesh_device
 from repro_torch.models.params import unstack
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim.grad import compressed_psum
+from repro_torch.sharding import whole
 from repro_torch.treepath import tree_leaves, tree_map
 
 
@@ -148,34 +154,83 @@ def make_train_step(model, tcfg: TrainConfig):
 def make_compressed_dp_train_step(model, tcfg: TrainConfig, mesh: SearchMesh,
                                   data_axis: str = "data"):
     """Explicit-DP train step with int8 gradient all-reduce + error
-    feedback, the ``data_axis`` positions of ``mesh`` as lanes of the
-    parameters' device, updating ``state`` in place.  The state needs
-    residuals (``grad_compression="int8"``); the batch must split evenly
-    over the lanes."""
+    feedback over the ``data_axis`` positions of ``mesh`` (lanes of the
+    parameters' device, laid over ranks when the mesh is), updating
+    ``state`` in place.  The state needs residuals
+    (``grad_compression="int8"``); the batch must split evenly over the
+    positions.  The loss is the lanes' losses gathered in lane order and
+    summed, over their count.
+
+    ``state.err`` holds, per leaf, one residual for every lane (a fresh
+    state), the whole (n, ...) array (a checkpoint: each rank takes its
+    block of rows), or, over ranks, the DTensor the step returned; any
+    other shape raises."""
     _, opt_update = make_optimizer(tcfg)
     remat = tcfg.remat != "none"
-    n = mesh.axis_size(data_axis)
+    n, lanes = mesh.axis_size(data_axis), mesh.lanes(data_axis)
+    axis = mesh.axis(data_axis)
+    lo = mesh.coord(data_axis) * lanes
+    placements = None
+    if axis is not None:
+        from torch.distributed.tensor import Replicate, Shard
+        placements = tuple(Shard(0) if a == data_axis else Replicate()
+                           for a in mesh.axis_names)
+
+    def rows(e, p):
+        """This rank's lanes' residual rows of ``e`` (or ``e`` itself, one
+        residual broadcast to every lane)."""
+        if placements is not None and getattr(e, "placements", None) == \
+                placements and e.device_mesh == mesh.device_mesh:
+            e = e.to_local()
+            ok = e.shape == (lanes,) + p.shape
+        else:
+            e = whole(e)
+            ok = e.shape in (p.shape, (n,) + p.shape)
+            if e.shape == (n,) + p.shape:
+                e = e[lo:lo + lanes]
+        if not ok:
+            raise ValueError(
+                f"a residual of shape {tuple(e.shape)} fits neither its "
+                f"parameter {tuple(p.shape)} nor the {n} positions of the "
+                f"{data_axis!r} axis")
+        return e
+
+    def spread(e):
+        """This rank's rows as the whole array split over the data ranks."""
+        if placements is None:
+            return e
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(e, mesh.device_mesh, placements,
+                                  run_check=False)
+
+    def block(k, v):
+        ax = BATCH_AXIS.get(k, 0)
+        if axis is not None:        # this rank's rows
+            v = _mb_split(v, axis.size, ax)[axis.coord]
+        return _mb_split(v, lanes, ax)
 
     def train_step(state: TrainState, batch):
         check_mesh_device(mesh, tree_leaves(state.params)[0].device)
         if state.err is None:
             raise ValueError("the compressed step keeps int8 residuals: "
                              "init the state with grad_compression='int8'")
-        lanes = {k: _mb_split(v, n, BATCH_AXIS.get(k, 0))
-                 for k, v in batch.items()}
-        grads = _zeros(state.params, lanes=n)
-        losses = [loss_and_grad(model, state.params,
-                                {k: v[i] for k, v in lanes.items()}, remat,
-                                tree_map(lambda g, i=i: g[i], grads))
-                  for i in range(n)]
-        mean_grads, new_err = compressed_psum(grads, state.err)
+        split = {k: block(k, v) for k, v in batch.items()}
+        grads = _zeros(state.params, lanes=lanes)
+        losses = torch.stack([
+            loss_and_grad(model, state.params,
+                          {k: v[i] for k, v in split.items()}, remat,
+                          tree_map(lambda g, i=i: g[i], grads))
+            for i in range(lanes)])
+        mean_grads, new_err = compressed_psum(
+            grads, tree_map(rows, state.err, state.params), axis)
         del grads
         mean_grads, gnorm = clip_by_global_norm(mean_grads, tcfg.grad_clip,
                                                 inplace=True)
         _, opt = opt_update(mean_grads, state.opt, state.params, tcfg,
                             inplace=True)
-        loss = torch.stack(losses).sum() / n
-        return (TrainState(state.params, opt, new_err),
-                {"loss": loss, "grad_norm": gnorm})
+        if axis is not None:
+            losses = axis.gather(losses, 0)
+        return (TrainState(state.params, opt, tree_map(spread, new_err)),
+                {"loss": losses.sum() / n, "grad_norm": gnorm})
 
     return train_step

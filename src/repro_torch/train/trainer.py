@@ -8,10 +8,13 @@ Responsibilities:
   * data pipeline resumption (the step-seeded synthetic stream restarts
     exactly).
 
-The reference's elastic restart onto another mesh waits for a mesh over
-several cards (ROADMAP.md §1 item 8).  A step updates the state in
-place: the trainer owns it, and a failed step's state is replaced by the
-restored one.
+A step updates the state in place: the trainer owns it, and a failed
+step's state is replaced by the restored one.  Over ranks (a process
+group up) every rank runs the trainer on the same stream, rank 0 writes
+the checkpoints, and a failed step is raised, not recovered: a rank
+cannot restore alone while the others wait in the step's collectives.
+Elastic restarts onto another mesh go through
+``runtime.elastic.reshard_state`` or ``load_checkpoint(..., shardings=)``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import ranks as rank_mod
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import TrainConfig
 from repro_torch.data.tokens import TokenStream, _batch_at
@@ -86,6 +90,10 @@ class Trainer:
                 if step % self.tcfg.checkpoint_every == 0 or step == steps:
                     self.ckpt.save(step, state)
             except Exception as e:  # noqa: BLE001 — recovery path
+                if rank_mod.is_up():
+                    # one rank cannot restore alone: the others wait in a
+                    # collective of the step it left
+                    raise
                 recoveries += 1
                 log.warning("step %d failed (%s); recovery %d/%d",
                             step, e, recoveries, self.max_recoveries)

@@ -120,7 +120,8 @@ LM_MODULES = ["config.py", "configs/__init__.py", "configs/qwen2_5_3b.py",
               "sharding.py", "models/moe.py", "models/moe_a2a.py",
               "models/whisper.py", "configs/shapes.py",
               "launch/roofline.py", "launch/op_profile.py",
-              "launch/dryrun.py", "launch/dryrun_ann.py", "launch/mesh.py"]
+              "launch/dryrun.py", "launch/dryrun_ann.py", "launch/mesh.py",
+              "ranks.py", "runtime/elastic.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -1249,3 +1249,18 @@ def test_whisper_decode_inplace_on_card(cuda_device):
                        tree_leaves(st)):
         assert torch.equal(a, b)
         assert a is c or a.dim() == 1          # pos is a new tensor
+
+
+def test_nccl_ranks_equal_lanes_on_card(cuda_device, tmp_path):
+    """NCCL, one rank a card (``tests/torch_ranks_worker.py``): the walker
+    path ((1, 4) bitmap and hash, (2, 4)), the partitioned build and the
+    corpus search, two compressed DP steps, the ``Trainer`` resumed from
+    a checkpoint the ranks wrote, and ``reshard_state`` over the ranks
+    equal the same runs as lanes of each rank's card bit for bit.
+    On one card the world is 1: the lanes travel through the NCCL code
+    path."""
+    import torch_ranks_worker as worker
+    outs = worker.spawn_cards(str(tmp_path))
+    for r, out in enumerate(outs):
+        assert out["backend"] == "nccl" and out["device"] == f"cuda:{r}"
+        assert out["ran"] and not out["diff"], out

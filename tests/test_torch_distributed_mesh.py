@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-import torch_distributed_ref as ref_case
+import torch_distributed_cases as ref_case
 from repro_torch.core.config import SearchConfig
 from repro_torch.core.distributed import (ShardedIndex, build_partitioned,
                                           corpus_sharded_search,

@@ -291,6 +291,19 @@ def test_mesh_on_another_device_raises():
             t_a2a.moe_ffn_sharded(p, torch.zeros((1, 4, 64)), cfg)
 
 
+def test_mesh_over_ranks_raises():
+    """The all_to_all over ranks is not ported: a mesh laid over ranks is
+    refused, not run as every position on each rank."""
+    _, cfg = _smoke("qwen3-moe-30b-a3b")
+    p = t_moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    mesh = dataclasses.replace(make_search_mesh((1, 4), device="cpu"),
+                               ranks=(1, 4), device_mesh=object())
+    assert mesh.over_ranks
+    with use_rules(DEFAULT_RULES, mesh):
+        with pytest.raises(NotImplementedError, match=r"§1 item 8"):
+            t_a2a.moe_ffn_sharded(p, torch.zeros((1, 4, 64)), cfg)
+
+
 # ---------------------------------------------------------------------------
 # whole models
 # ---------------------------------------------------------------------------

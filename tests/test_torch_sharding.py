@@ -5,8 +5,9 @@ reference's specs (its ``PartitionSpec``s compared as tuples) on a (2, 4)
 ("data", "model") mesh: the reference's ``AbstractMesh``, the port's
 ``SearchMesh`` of lanes on the CPU.  The moe leaves are among them.
 ``use_rules`` sets the active rules and mesh for a block, ``shard``
-returns its input, and ``param_shardings`` (a mesh over several cards)
-raises naming ROADMAP.md §1 item 8.
+returns its input, and ``param_shardings`` gives the reference's specs as
+placements on a mesh over ranks, and raises naming ROADMAP.md §1 item 8 on
+a mesh of lanes.
 """
 import jax
 import pytest
@@ -15,10 +16,12 @@ import torch
 import repro.sharding as jsh
 from repro.configs import get_smoke_config as j_smoke
 from repro.models import build_model as j_build
+from repro_torch import ranks
 from repro_torch import sharding as tsh
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.distributed import make_search_mesh
 from repro_torch.models import build_model
+from repro_torch.treepath import flatten_with_path, keystr_simple
 
 
 @pytest.fixture(scope="module")
@@ -129,10 +132,38 @@ def test_use_rules_sets_rules_and_mesh_for_a_block(meshes):
                                                              "model")
 
 
-def test_keystr_and_param_shardings(meshes):
+def test_keystr_and_param_shardings(meshes, tmp_path):
+    """``param_shardings`` on a (2, 4) mesh laid over the ranks of a
+    one-rank gloo group: each leaf's spec is the reference's, and its
+    placements shard the dims the spec names; on a lanes-only mesh it
+    refuses, naming ROADMAP §1 item 8."""
+    from torch.distributed.tensor import Replicate, Shard
     assert tsh.keystr_simple(("layers", "moe", "router")) == \
         "layers/moe/router"
-    _, mesh = meshes
+    ref_mesh, mesh = meshes
     with pytest.raises(NotImplementedError, match=r"§1 item 8"):
         tsh.param_shardings({"w": torch.zeros(2)}, mesh)
     assert tsh.PARAM_RULES == jsh.PARAM_RULES
+    cfg = get_smoke_config("qwen3-moe-30b-a3b")
+    port = build_model(cfg, device="cpu").init_tree(
+        torch.Generator().manual_seed(0))
+    tree = jax.eval_shape(j_build(j_smoke("qwen3-moe-30b-a3b")).init,
+                          jax.random.PRNGKey(0))      # shapes only
+    want = {jsh.keystr_simple(p): _tuple(s) for p, s in
+            jax.tree_util.tree_flatten_with_path(
+                jsh.param_specs(tree, ref_mesh),
+                is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)
+            )[0]}
+    ranks.init_ranks(device="cpu", init_method=f"file://{tmp_path}/rdv",
+                     rank=0, world=1)
+    try:
+        over = make_search_mesh((2, 4), device="cpu", ranks=(1, 1))
+        got = {keystr_simple(p): v for p, v in
+               flatten_with_path(tsh.param_shardings(port, over))}
+    finally:
+        ranks.shutdown()
+    assert {k: v.spec for k, v in got.items()} == want
+    for k, v in got.items():
+        for name, pl in zip(("data", "model"), v.placements):
+            dims = [i for i, e in enumerate(v.spec) if e == name]
+            assert pl == (Shard(dims[0]) if dims else Replicate()), k

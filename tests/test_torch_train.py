@@ -483,6 +483,24 @@ def test_compressed_step_within_exact_step_bounds():
         make_compressed_dp_train_step(model, tcfg, elsewhere)(state, batch)
 
 
+def test_compressed_step_refuses_residuals_of_another_axis():
+    """Residual rows kept for 4 data positions do not fit a 2-position
+    axis: the step raises rather than broadcast them against its lanes."""
+    model = _port_model("llama3.2-3b")
+    stream = TokenStream(model.cfg.vocab_size, 16, 16, 0, 0, 1)
+    batch = _tbatch(_batch_at(stream, 0))
+    tcfg = TrainConfig(grad_compression="int8", learning_rate=1e-3,
+                       warmup_steps=1, total_steps=10)
+    state = init_train_state(model, torch.Generator().manual_seed(0), tcfg)
+    four, _ = make_compressed_dp_train_step(
+        model, tcfg, make_host_mesh(4, 1, device="cpu"))(state, batch)
+    assert all(e.shape[0] == 4 for _, e in flatten_with_path(four.err))
+    two = make_compressed_dp_train_step(model, tcfg,
+                                        make_host_mesh(2, 1, device="cpu"))
+    with pytest.raises(ValueError, match="fits neither"):
+        two(four, batch)
+
+
 # ---------------------------------------------------------------------------
 # the reference's properties (tests/test_train.py), on the port
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Reference outputs of ``repro.core.distributed`` on meshes of several
-devices, for ``tests/test_torch_distributed_mesh.py``.
+devices, for ``tests/test_torch_distributed_mesh.py`` and
+``tests/test_torch_ranks.py``.
 
-    python tests/torch_distributed_ref.py OUT.npz
+    python tests/torch_distributed_ref.py OUT.npz [--specs]
 
 XLA must be told to make 8 host devices before JAX is imported, hence a
 process of its own.  Writes the inputs (an integer graph and queries, a
@@ -10,6 +11,9 @@ process of its own.  Writes the inputs (an integer graph and queries, a
 (2, 4) meshes in the bitmap, hash and loose visited modes and on a
 (2, 2, 2) mesh, and of the corpus-sharded search with 4 shards on (1, 4)
 and (2, 4).  Every search is jitted, as the reference's own facade runs it.
+With ``--specs`` it also writes ``repro.sharding.param_specs`` of the
+llama3.2-3b smoke config's int8 ``TrainState`` on each of SPEC_MESHES
+(shapes only, by ``jax.eval_shape``), as ``specs/<mesh>/<leaf path>``.
 """
 import os
 import sys
@@ -29,19 +33,10 @@ from repro.core.distributed import (build_partitioned,  # noqa: E402
                                     walker_sharded_search)
 from repro.core.graph import make_padded_csr            # noqa: E402
 
-N, D, B = 400, 16, 8
-WALKER_CFG = dict(k=10, queue_len=24, m_max=4, max_steps=48, local_steps=3,
-                  global_rounds=6, hash_bits=10)
-# (case name, mesh shape, axis names, visited mode)
-WALKER_CASES = [(f"walker_{'x'.join(map(str, shape))}_{mode}", shape,
-                 ("data", "model"), mode)
-                for shape in ((1, 4), (2, 4))
-                for mode in ("bitmap", "hash", "loose")]
-WALKER_CASES.append(("walker_2x2x2_bitmap", (2, 2, 2),
-                     ("pod", "data", "model"), "bitmap"))
-CORPUS_CFG = dict(k=10, queue_len=24, m_max=1, staged=False, max_steps=64)
-CORPUS_CASES = [("corpus_1x4", (1, 4)), ("corpus_2x4", (2, 4))]
-PARTITION = dict(num_shards=4, degree=8, ef_construction=16, passes=1)
+from torch_distributed_cases import (B, CORPUS_CASES,  # noqa: E402
+                                     CORPUS_CFG, D, N, PARTITION,
+                                     SPEC_ARCH, SPEC_MESHES, WALKER_CASES,
+                                     WALKER_CFG)
 
 
 def inputs():
@@ -57,7 +52,31 @@ def inputs():
     return x, q, nbrs.astype(np.int32)
 
 
-def main(out_path: str) -> None:
+def state_specs(out: dict) -> None:
+    """``param_specs`` of the smoke TrainState on SPEC_MESHES, each spec
+    as a JSON list (a tuple of axes as a list)."""
+    import json
+    from repro.config import TrainConfig
+    from repro.configs import get_smoke_config
+    from repro.models import build_model
+    from repro.sharding import keystr_simple, param_specs
+    from repro.train.train_step import init_train_state
+    model = build_model(get_smoke_config(SPEC_ARCH))
+    tcfg = TrainConfig(grad_compression="int8")
+    state = jax.eval_shape(
+        lambda: init_train_state(model, jax.random.PRNGKey(0), tcfg))
+    for shape in SPEC_MESHES:
+        mesh = make_search_mesh(shape, ("data", "model"))
+        specs = param_specs(state, mesh)
+        flat, _ = jax.tree_util.tree_flatten_with_path(
+            specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        for path, spec in flat:
+            out[f"specs/{shape[0]}x{shape[1]}/{keystr_simple(path)}"] = (
+                np.asarray(json.dumps([list(e) if isinstance(e, tuple)
+                                       else e for e in spec])))
+
+
+def main(out_path: str, specs: bool = False) -> None:
     assert len(jax.devices()) == 8, jax.devices()
     x, q, nbrs = inputs()
     graph = make_padded_csr(nbrs, x)
@@ -82,9 +101,11 @@ def main(out_path: str) -> None:
             lambda qq: corpus_sharded_search(index, qq, cfg, mesh))(qj)
         out[f"{name}/ids"] = np.asarray(ids)
         out[f"{name}/dists"] = np.asarray(dists)
+    if specs:
+        state_specs(out)
     np.savez(out_path, **out)
     print("REFERENCE_OK")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], "--specs" in sys.argv[2:])
