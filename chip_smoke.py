@@ -269,9 +269,28 @@ Phases, one JSON line each:
                step on a 4-position data axis over the ranks, its
                parameter and residual digests, loss and grad norm equal to
                phase 16's 4-lane step, with reshard_state of the
-               parameters and moments under NCCL.  Backend, world,
-               transport, the compute mode, p50 walls.  The kernels line's
-               rows gain ``launches_ranks``.
+               parameters and moments under NCCL.  Serving over the
+               ranks: the walker engine on (1, 4) and the corpus engine
+               on (1, 4), rank 0 the controller (requests of 1, 17 and 46
+               queries, the corpus engine 1, then the 64 through a
+               coalescer in bursts of 5 and 59; the others in
+               AnnEngine.run_worker until the
+               coalescer's close), every answer equal to the rank's
+               search on the same mesh (ids, dists; the walker's 8
+               counters), each worker running the buckets rank 0 sent,
+               rowgather the only kernel.  The MoE over the ranks: phase
+               17's exact set-up (one full-width layer, f32, 2,048
+               integer tokens, a 2^-12-grid router) through moe_ffn_whole
+               on (2, 4) (a2a) and (2, 6) (tp, 128 f a slice) over the
+               ranks, the weights placed by param_shardings (FSDP over
+               data): output, aux, x's gradient and each rank's part of
+               the gradients of the router and the three expert stacks
+               equal to the rank's own lanes run bit for bit (the lanes
+               run's output within 1e-5 of the CPU's), none of the six
+               kernels launched.  Backend, world,
+               transport, the compute mode, p50 walls, request p50/p99,
+               queries/s, mean batch.  The kernels line's rows gain
+               ``launches_ranks``.
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -3170,6 +3189,28 @@ def moe_card_vs_cpu(cfg, seed: int):
             "tolerance": {"logits": 1e-4, "aux": 1e-6, "loss_grads": 1e-4}}
 
 
+def moe_exact_setup(seed: int, dev):
+    """The exact set-up of phases 17 and 21 (b) on ``dev``: one
+    full-width MOE_ARCH layer (f32), its MoE weights with the router on a
+    2^-12 grid, MOE_LANE_TOKENS integer tokens in [-3, 3], and a
+    cotangent for the output.  The same on every rank."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=1,
+                              dtype="float32")
+    p = moe.moe_init(torch.Generator(device=dev).manual_seed(seed + 23),
+                     cfg, torch.float32)
+    p["router"] = torch.round(p["router"] * 4096) / 4096
+    shape = (1, MOE_LANE_TOKENS, cfg.d_model)
+    x = torch.randint(-3, 4, shape, generator=torch.Generator().manual_seed(
+        seed + 29)).float()
+    gy = torch.randn(shape, generator=torch.Generator().manual_seed(
+        seed + 31))
+    return cfg, p, x.to(dev), gy.to(dev)
+
+
 def moe_lanes(cfg, seed: int):
     """Phase 17 (b): ``moe_ffn_sharded`` on one full-width layer's
     experts (f32) and MOE_LANE_TOKENS tokens over each of MOE_LANE_MESHES:
@@ -3188,17 +3229,11 @@ def moe_lanes(cfg, seed: int):
     from repro_torch.models import moe, moe_a2a
     from repro_torch.sharding import DEFAULT_RULES, use_rules
 
-    one = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    one, p_card, x_card, _ = moe_exact_setup(seed, "cuda")
     eight = dataclasses.replace(one, moe=dataclasses.replace(
         one.moe, capacity_factor=8.0))
-    p_card = moe.moe_init(torch.Generator(device="cuda").manual_seed(
-        seed + 23), one, torch.float32)
-    p_card["router"] = torch.round(p_card["router"] * 4096) / 4096
     p_cpu = {k: v.cpu() for k, v in p_card.items()}
-    x_cpu = torch.randint(-3, 4, (1, MOE_LANE_TOKENS, cfg.d_model),
-                          generator=torch.Generator().manual_seed(seed + 29)
-                          ).float()
-    x_card = x_cpu.cuda()
+    x_cpu = x_card.cpu()
 
     def sharded(c, p, x, shape, dev):
         with use_rules(DEFAULT_RULES, make_search_mesh(shape, device=dev)):
@@ -4279,7 +4314,11 @@ def launch_phase(seed: int, smi, traces=None):
 # the walker meshes (name, shape, visited mode), split over the ranks by
 # rank_grid, each held to phase 14's lanes answer; the corpus path on
 # (1, N_SHARDS) loads phase 14's shards; the compressed step on a 4-position
-# data axis is held to phase 16's 4-lane digests.
+# data axis is held to phase 16's 4-lane digests.  Serving over the ranks:
+# the walker engine on (1, 4) and the corpus engine on (1, N_SHARDS), rank 0
+# the controller (engine requests, then a coalescer), held to the rank's
+# search on the same mesh.  The MoE over the ranks: phase 17's exact
+# set-up through moe_ffn_whole on RANK_MOE_MESHES, held to the lanes run.
 RANK_CASES = (("1x4_bitmap", (1, 4), "bitmap"),
               ("2x4_bitmap", (2, 4), "bitmap"),
               ("1x4_hash", (1, 4), "hash"))
@@ -4287,6 +4326,16 @@ RANKS_GLOO = 4
 RANK_REPS = 2                 # timed batches a case after the counted one
 RANK_TIMEOUT_S = 240          # a process group's collectives
 RANK_JOIN_S = 300             # a spawned rank's join
+# rank 0's engine requests over the 64 queries (first query, size): the
+# walker engine's, the corpus engine's (a corpus search takes ~2 s whatever
+# the batch, and its counters are 0); then the 64 through its coalescer in
+# bursts of these sizes
+RANK_SERVE_REQUESTS = ((0, 1), (1, 17), (18, 46))
+RANK_CORPUS_REQUESTS = ((0, 1),)
+RANK_SERVE_BURSTS = (5, 59)
+# (path, mesh): a2a, 128 experts over 4 model positions; tp, 128 % 6 != 0
+# and d_ff 768 = 6 f-slices of 128
+RANK_MOE_MESHES = (("a2a", (2, 4)), ("tp", (2, 6)))
 
 
 def device_digest(tensors) -> str:
@@ -4392,14 +4441,218 @@ def rank_compressed(dev, world: int, seed: int, reshard: bool):
     return out
 
 
+def rank_serve(engine, q, want, counters: bool, requests) -> dict:
+    """Phase 21 (a) on rank 0, the controller: ``requests`` (first query,
+    size) through ``engine.search`` (each padded to its bucket), then the
+    64 queries through a coalescer in RANK_SERVE_BURSTS; ids and dists
+    (with ``counters`` the 8 counters too) equal to ``want``'s rows, the
+    rank's search of the whole batch on the same mesh.  Closing the coalescer
+    closes the engine, which ends every worker's loop.  Returns the
+    request walls, queries/s and batches."""
+    from repro_torch.serve import AsyncAnnEngine, CoalescePolicy
+    qn = q.cpu().numpy()
+    ids, dists = want[0].numpy(), want[1].numpy()
+
+    def check(what, lo, got_ids, got_dists, stats=None):
+        n = len(got_ids)
+        ok = (np.array_equal(got_ids, ids[lo:lo + n])
+              and np.array_equal(got_dists, dists[lo:lo + n]))
+        if stats is not None:
+            ok &= all(np.array_equal(getattr(stats, f),
+                                     want[2][f][lo:lo + n].numpy())
+                      for f in want[2])
+        if not ok:
+            raise AssertionError(f"served {what} [{lo}:{lo + n}] differs "
+                                 "from the search on the same mesh")
+    t0 = time.perf_counter()
+    walls = []
+    for lo, n in requests:
+        r = engine.search(qn[lo:lo + n])
+        check("request", lo, r.ids, r.dists, r.stats if counters else None)
+        walls.append(r.latency_ms)
+    srv = AsyncAnnEngine(engine, CoalescePolicy(max_batch=64,
+                                                max_wait_ms=50.0))
+    lo, waits = 0, []
+    for n in RANK_SERVE_BURSTS:
+        t_sub = time.perf_counter()
+        got = [f.result(timeout=RANK_TIMEOUT_S)
+               for f in [srv.submit(x) for x in qn[lo:lo + n]]]
+        check("coalesced", lo, np.stack([g.ids for g in got]),
+              np.stack([g.dists for g in got]))
+        waits += [(g.done_t - t_sub) * 1e3 for g in got]
+        lo += n
+    seconds = time.perf_counter() - t0
+    st, est = srv.stats(), engine.stats()
+    srv.close()
+    return {"equal": True, "requests": [n for _, n in requests],
+            "request_ms": walls, "bursts": list(RANK_SERVE_BURSTS),
+            "coalesced_p50_ms": float(np.percentile(waits, 50)),
+            "coalesced_p99_ms": float(np.percentile(waits, 99)),
+            "engine_p50_ms": est["latency_p50_ms"],
+            "engine_p99_ms": est["latency_p99_ms"],
+            "queries_per_s": (sum(n for _, n in requests)
+                              + sum(RANK_SERVE_BURSTS)) / seconds,
+            "mean_batch": st["batch_size_mean"],
+            "batches": st["batches_dispatched"],
+            "buckets": est["cache_hits"] + est["cache_misses"],
+            "seconds": seconds}
+
+
+def serve_over_ranks(engine, q, want, counters: bool, requests) -> dict:
+    """Phase 21 (a), one rank: rank 0 serves (:func:`rank_serve`), the
+    others run the worker loop until rank 0 closes; each rank's launches
+    counted."""
+    from repro_torch import ranks
+    if ranks.rank() == 0:
+        out, launches = counted(rank_serve, engine, q, want, counters,
+                                requests)
+    else:
+        served, launches = counted(engine.run_worker)
+        out = {"buckets": served}
+    return dict(out, launches=launches)
+
+
+def _local_slices(t, mesh) -> list:
+    """(offset, length) along each dim of the part of the whole tensor
+    that this rank's local part of DTensor ``t`` holds."""
+    out = [[0, n] for n in t.shape]
+    for name, r, pl in zip(mesh.axis_names, mesh.ranks, t.placements):
+        if pl.is_shard():
+            part = out[pl.dim]
+            part[1] //= r
+            part[0] += mesh.coord(name) * part[1]
+    return out
+
+
+def moe_run(cfg, p, x, gy, mesh) -> dict:
+    """``moe_ffn_whole`` on ``mesh`` (lanes of one device, or ranks) and
+    the backward of sum(y · gy) + aux.  Over ranks the router and the
+    expert stacks are DTensors placed by ``sharding.param_shardings``
+    (FSDP over ``data``, experts or f-slices over ``model``).  Returns y,
+    the aux loss, x's gradient, each leaf's gradient (over ranks: the
+    local part, and the slices of the whole it holds) and the wall."""
+    import torch
+    from repro_torch.models import moe_a2a
+    from repro_torch.sharding import (DEFAULT_RULES, param_shardings,
+                                      place, use_rules)
+    if mesh.over_ranks:
+        sh = param_shardings(p, mesh)
+        leaves = {k: place(v, sh[k]).requires_grad_(True)
+                  for k, v in p.items()}
+    else:
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    x = x.detach().clone().requires_grad_(True)
+    moe_a2a.set_moe_impl("a2a")
+    try:
+        with use_rules(DEFAULT_RULES, mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux = moe_a2a.moe_ffn_whole(leaves, x, cfg)
+            ((y * gy).sum() + aux).backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe_a2a.set_moe_impl("gspmd")
+    out = {"y": y.detach(), "aux": float(aux.detach()), "x_grad": x.grad,
+           "ms": ms, "grads": {}, "slices": {}}
+    for k, v in leaves.items():
+        if mesh.over_ranks:
+            out["grads"][k] = v.grad.to_local()
+            out["slices"][k] = _local_slices(v.grad, mesh)
+        else:
+            out["grads"][k] = v.grad
+        v.grad = None
+    return out
+
+
+def moe_lanes_vs_cpu(seed: int) -> dict:
+    """Phase 21 (b) on the lanes: each of RANK_MOE_MESHES that phase 17
+    (MOE_LANE_MESHES) does not hold to the CPU, as lanes of this
+    process's card, its output and aux held to the same call on the CPU
+    (phase 17's 1e-5 of the output's largest magnitude, 1e-6)."""
+    import torch
+    from repro_torch.core.distributed import make_search_mesh
+    from repro_torch.models import moe_a2a
+    from repro_torch.sharding import DEFAULT_RULES, use_rules
+    out = {path: {"mesh": list(shape), "card_vs_cpu": "phase 17"}
+           for path, shape in RANK_MOE_MESHES if shape in MOE_LANE_MESHES}
+    todo = [(path, shape) for path, shape in RANK_MOE_MESHES
+            if path not in out]
+    if not todo:
+        return out
+    cfg, p, x, _ = moe_exact_setup(seed, "cuda")
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+
+    def whole(p, x, shape, dev):
+        moe_a2a.set_moe_impl("a2a")
+        try:
+            with torch.inference_mode(), use_rules(
+                    DEFAULT_RULES, make_search_mesh(shape, device=dev)):
+                return moe_a2a.moe_ffn_whole(p, x, cfg)
+        finally:
+            moe_a2a.set_moe_impl("gspmd")
+    for path, shape in todo:
+        got, aux_card = whole(p, x, shape, "cuda")
+        want, aux_cpu = whole(p_cpu, x.cpu(), shape, "cpu")
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        aux_err = abs(float(aux_card) - float(aux_cpu))
+        if err > 1e-5 or aux_err > 1e-6:
+            raise AssertionError(f"moe lanes {shape}: card vs CPU {err} "
+                                 f"(aux {aux_err})")
+        out[path] = {"mesh": list(shape), "rel_err_card_cpu": err,
+                     "aux_err_card_cpu": aux_err}
+        del got
+    del p, p_cpu, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_moe(dev, world: int, seed: int) -> dict:
+    """Phase 21 (b), one rank: :func:`moe_run` of each of RANK_MOE_MESHES
+    as lanes of this rank's card, then over the ranks (split by
+    rank_grid; with a world of 1 the positions are lanes of the rank):
+    y, aux, x's gradient and this rank's part of each leaf's gradient
+    compared bit for bit; the ranks run's launches (none of the six
+    kernels are on this path)."""
+    import torch
+    from repro_torch.core.distributed import make_search_mesh
+    from repro_torch.launch.mesh import rank_grid
+    cfg, p, x, gy = moe_exact_setup(seed, dev)
+    out = {}
+    for path, shape in RANK_MOE_MESHES:
+        grid = rank_grid(*shape, world)
+        if grid is None:
+            out[path] = {"skipped": f"{shape} does not split over {world} "
+                                    "ranks"}
+            continue
+        lanes = moe_run(cfg, p, x, gy, make_search_mesh(shape, device=dev))
+        got, launches = counted(moe_run, cfg, p, x, gy,
+                                make_search_mesh(shape, ranks=grid))
+        diff = [k for k in ("y", "x_grad")
+                if not torch.equal(got[k], lanes[k])]
+        diff += ["aux"] if got["aux"] != lanes["aux"] else []
+        diff += [f"{k} gradient" for k, v in got["grads"].items()
+                 if not torch.equal(v, lanes["grads"][k][tuple(
+                     slice(a, a + n) for a, n in got["slices"][k])])]
+        out[path] = {"ranks": list(grid), "diff": diff, "ms": got["ms"],
+                     "lanes_ms": lanes["ms"], "launches": launches,
+                     "gate_part": [n for _, n in got["slices"]["moe_gate"]]}
+        del lanes, got
+    del p, x, gy
+    torch.cuda.empty_cache()
+    return out
+
+
 def rank_body(rank: int, world: int, backend: str, card: str,
               job: dict) -> dict:
     """Phase 21, one rank of a ``backend`` group of ``world`` ranks on
     ``card``: the fixture index loaded from its file, the walker path on
     each of RANK_CASES through rowgather (64 queries; the counted batch
-    and RANK_REPS timed ones), the corpus path on (1, N_SHARDS) over this
-    rank's block of phase 14's shards, and :func:`rank_compressed`.
-    Returns the answers (on the host), launches and walls."""
+    and RANK_REPS timed ones) and the walker engine served over (1, 4)
+    (:func:`serve_over_ranks`), the corpus path on (1, N_SHARDS) over this
+    rank's block of phase 14's shards and its engine served,
+    :func:`rank_compressed` and :func:`rank_moe`.  Returns the answers (on
+    the host), launches and walls."""
     import datetime
     import torch
     from repro_torch import ranks
@@ -4408,6 +4661,7 @@ def rank_body(rank: int, world: int, backend: str, card: str,
                                               corpus_sharded_search,
                                               local_shards, make_search_mesh)
     from repro_torch.launch.mesh import rank_grid
+    from repro_torch.serve import AnnEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4438,6 +4692,19 @@ def rank_body(rank: int, world: int, backend: str, card: str,
                 "ranks": list(grid), "answer": _cpu_result(res),
                 "launches": launches,
                 "batch_ms": [ms] + batch_walls(lambda: fn(q), RANK_REPS)}
+        out["serve"] = {}
+        if "answer" in out["walker"]["1x4_bitmap"]:
+            # the engine on the (1, 4) bitmap mesh, held to that answer
+            t0 = time.perf_counter()
+            engine = index.serve(
+                params.with_(visited_mode="bitmap"),
+                mesh=make_search_mesh((1, 4), ranks=rank_grid(1, 4, world)))
+            out["serve"]["sharded_1x4"] = serve_over_ranks(
+                engine, q, out["walker"]["1x4_bitmap"]["answer"], True,
+                RANK_SERVE_REQUESTS)
+            out["serve"]["sharded_1x4"]["wall_s"] = \
+                time.perf_counter() - t0
+            del engine
         del index, fn
         torch.cuda.empty_cache()
         grid = rank_grid(1, N_SHARDS, world)
@@ -4459,10 +4726,20 @@ def rank_body(rank: int, world: int, backend: str, card: str,
                              "shards_here": block.num_shards,
                              "answer": (ids.cpu(), dists.cpu()),
                              "launches": launches, "batch_ms": [ms]}
-            del block, shards
+            t0 = time.perf_counter()
+            engine = AnnEngine(block, smoke_params().with_(
+                backend="rowgather", max_steps=CORPUS_MAX_STEPS), mesh=mesh)
+            out["serve"]["corpus_1x4"] = serve_over_ranks(
+                engine, q, out["corpus"]["answer"], False,
+                RANK_CORPUS_REQUESTS)
+            out["serve"]["corpus_1x4"]["wall_s"] = time.perf_counter() - t0
+            del block, shards, engine
             torch.cuda.empty_cache()
         out["compressed"] = rank_compressed(dev, world, job["seed"],
                                             reshard=backend == "nccl")
+        t0 = time.perf_counter()
+        out["moe"] = rank_moe(dev, world, job["seed"])
+        out["moe_seconds"] = time.perf_counter() - t0
     finally:
         ranks.shutdown()
     out["seconds"] = time.perf_counter() - t_start
@@ -4508,13 +4785,66 @@ def run_ranks(backend: str, world: int, cards, job: dict, in_process: bool):
     return outs
 
 
+def check_served(outs, label: str, launches: dict) -> dict:
+    """Phase 21 (a): rank 0 served every request equal to its search
+    (:func:`rank_serve` raises otherwise); each worker ran the buckets
+    rank 0 dispatched.  Adds each rank's serving launches to
+    ``launches``; returns rank 0's figures by engine."""
+    out = {}
+    for kind, lead in outs[0]["serve"].items():
+        for o in outs:
+            got = o["serve"][kind]
+            if got["buckets"] != lead["buckets"]:
+                raise AssertionError(
+                    f"{label} rank {o['rank']}: {kind} ran {got['buckets']} "
+                    f"buckets, rank 0 dispatched {lead['buckets']}")
+            launches[f"ranks_{label}_serve_{kind}_rank{o['rank']}"
+                     "/rowgather"] = got["launches"]
+        out[kind] = {k: v for k, v in lead.items() if k != "launches"}
+        out[kind]["launches_by_rank"] = [
+            o["serve"][kind]["launches"]["l2dist_rowgather"] for o in outs]
+    return out
+
+
+def check_moe(outs, lanes: dict, label: str, launches: dict) -> dict:
+    """Phase 21 (b): on every rank the output, aux, x's gradient and its
+    part of each leaf's gradient equal its lanes run's bit for bit
+    (:func:`rank_moe`), and no rank launched any of the six kernels.
+    Adds the launches to ``launches``; returns the walls beside the
+    lanes' card-vs-CPU check."""
+    out = {}
+    for path, case in lanes.items():
+        case = dict(case, ms={}, lanes_ms_by_rank={})
+        for o in outs:
+            got = o["moe"][path]
+            if "skipped" in got:
+                case = got
+                break
+            if got["diff"]:
+                raise AssertionError(f"{label} rank {o['rank']}: moe {path} "
+                                     f"{got['diff']} differ from the lanes "
+                                     "run")
+            launches[f"ranks_{label}_moe_{path}_rank{o['rank']}/ref"] = \
+                got["launches"]
+            case.update(ranks=got["ranks"], equal_to_lanes=True,
+                        gate_part=got["gate_part"])
+            case["ms"][o["rank"]] = got["ms"]
+            case["lanes_ms_by_rank"][o["rank"]] = got["lanes_ms"]
+        out[path] = case
+    return out
+
+
 def check_ranks(outs, keep, label: str) -> dict:
     """Every rank's answers equal phase 14's lanes answers (ids, dists, the
     8 counters; corpus ids and dists) and phase 16's step (digests, loss,
-    grad norm); every path launched l2dist_rowgather and no other kernel.
-    Returns the part's summary and its launches by path."""
+    grad norm); every search and serving path launched l2dist_rowgather
+    and no other kernel; the served answers and the MoE as
+    :func:`check_served` and :func:`check_moe` say.  Returns the part's
+    summary and its launches by path."""
     import torch
     summary, launches, lanes_seen = {"cases": {}}, {}, set()
+    summary["serve"] = check_served(outs, label, launches)
+    summary["moe"] = check_moe(outs, keep["moe_lanes"], label, launches)
     for o in outs:
         for name, got in list(o["walker"].items()) + [
                 ("corpus", o["corpus"])]:
@@ -4566,7 +4896,8 @@ def check_ranks(outs, keep, label: str) -> dict:
                    transport=outs[0]["transport"],
                    devices=[o["device"] for o in outs],
                    rank_seconds=[o["seconds"] for o in outs],
-                   setup_seconds=[o["setup_seconds"] for o in outs])
+                   setup_seconds=[o["setup_seconds"] for o in outs],
+                   moe_seconds=[o["moe_seconds"] for o in outs])
     return summary, launches
 
 
@@ -4594,10 +4925,12 @@ def ranks_alone(seed: int, smi):
 
 def ranks_phase(seed: int, smi, keep: dict, work: str):
     """Phase 21: the port's mesh over the ranks of a process group, held
-    to the lanes runs of phases 14 and 16.  NCCL over every card (this
-    process rank 0); then gloo over RANKS_GLOO ranks sharing the cards,
-    unless the compute mode forbids sharing a card.  Returns (the phase's
-    line, its path launches)."""
+    to the lanes runs of phases 14 and 16, serving over the ranks held to
+    the ranks' searches, and the MoE over the ranks held to its lanes run
+    (made here first).  NCCL over every card (this process rank 0); then
+    gloo over RANKS_GLOO ranks sharing the cards, unless the compute mode
+    forbids sharing a card.  Returns (the phase's line, its path
+    launches)."""
     import torch
     t0 = time.perf_counter()
     count = torch.cuda.device_count()
@@ -4610,6 +4943,9 @@ def ranks_phase(seed: int, smi, keep: dict, work: str):
            "queries": queries, "shards": keep["shards"]}
     np.save(queries, keep["queries64"])
     out = {"phase": "ranks", "cards": count, "compute_mode": modes}
+    t1 = time.perf_counter()
+    keep["moe_lanes"] = moe_lanes_vs_cpu(seed)
+    out["moe_lanes_seconds"] = time.perf_counter() - t1
     if count < 2:
         out["unverified"] = ("one card: NCCL runs a world of 1 (the walkers "
                              "as lanes through the NCCL code path); a mesh "
@@ -4871,7 +5207,8 @@ def run_phases(args, work: str, t_start: float, name: str, smi) -> int:
     emit(ranked)
     del keep
     for row in rows:
-        # every rank's walker and corpus paths launch rowgather alone
+        # every rank's walker, corpus and serving paths launch rowgather
+        # alone; the MoE over the ranks none
         row["launches_ranks"] = sum(c[row["name"]]
                                     for c in rank_launches.values())
     moe, moe_launches = moe_phase(args.seed, smi)

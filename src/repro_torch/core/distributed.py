@@ -175,10 +175,11 @@ def check_mesh_device(mesh: SearchMesh, device: torch.device) -> None:
     if mesh.device != device:
         raise ValueError(
             f"the mesh's positions sit on {mesh.device}, the index on "
-            f"{device}: positions on a card other than the index's are not "
-            f"ported (ROADMAP.md §1 item {MULTI_CARD_ITEM}); make the mesh "
-            "on the index's device, or lay it over ranks with each rank's "
-            "index on its own card")
+            f"{device}: check_mesh_device refuses lanes on a card other "
+            f"than the index's (ROADMAP.md §1 item {MULTI_CARD_ITEM}, "
+            "lanes across cards, not ported); make the mesh on the index's "
+            "device, or lay it over ranks with each rank's index on its "
+            "own card")
 
 
 def _check_data_split(mesh: SearchMesh, data_axis: str, batch: int) -> None:

@@ -74,7 +74,8 @@ MESHES = {"1xh100": (1, None), "16x16": (256, False),
 # the reference's mesh names
 MESH_ALIASES = {"single": "16x16", "multi": "2x16x16"}
 NO_PARTITIONER = ("no partitioner: collectives are not counted and nothing "
-                  "is split across cards (ROADMAP.md §1 item 8)")
+                  "is split across cards (ROADMAP.md §1 item 8, the dry "
+                  "run's partitioner)")
 
 # logical axes of the batch inputs (the reference's batch_specs)
 BATCH_LOGICAL = {

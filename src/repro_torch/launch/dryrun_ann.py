@@ -302,7 +302,7 @@ def main(argv=None) -> int:
     for name, (kind, multi) in CELLS.items():
         out = dict(per_card(kind, multi), status="ok",
                    reason="counted on the meta device; no partitioner "
-                          "(ROADMAP.md §1 item 8)")
+                          "(ROADMAP.md §1 item 8, the dry run's partitioner)")
         res[name] = out
         m = out["memory"]
         print(f"[ok] {name}  args/card={m['argument_bytes'] / 1e9:.3f} GB "

@@ -5,8 +5,9 @@ device as lanes, or lays them over the ranks of a process group.
 ``make_production_mesh`` gives the reference's pod layouts as lanes of one
 device, which is what the dry run (``launch.dryrun``) divides a cell's
 bytes by on the meta device; placing its 256 or 512 positions over as
-many cards is ROADMAP.md §1 item 8.  ``make_host_mesh`` lays its mesh over
-the group's ranks when one is up (``ranks.init_ranks``).
+many cards (the production meshes over ranks) is ROADMAP.md §1 item 8.
+``make_host_mesh`` lays its mesh over the group's ranks when one is up
+(``ranks.init_ranks``).
 """
 from __future__ import annotations
 

@@ -16,8 +16,9 @@ otherwise its positions are lanes of the one device.  ``--data`` splits the
 batch for ``--compress``'s int8 all-reduce; rank 0 prints and writes the
 checkpoints.  The run is inside ``use_rules(DEFAULT_RULES, mesh)`` as the
 reference's is (the mesh a moe model's ``moe_ffn_sharded`` splits over
-under ``set_moe_impl("a2a")``; a mesh over ranks it refuses).  Checkpoints default to a directory under
-the temp dir.
+under ``set_moe_impl("a2a")``, lanes or ranks; under ``--compress`` each
+rank's rows split over the mesh's positions as lanes of its card).
+Checkpoints default to a directory under the temp dir.
 """
 from __future__ import annotations
 

@@ -17,9 +17,9 @@ views (:func:`as_layers`) and runs the layers in a Python loop (``maybe_scan``
 with ``scan_layers=False``).  Weights are stored in ``param_dtype`` and
 cast to the compute dtype at each use, as the reference casts them inside
 its jit.  A moe layer's FFN is ``models.moe.moe_ffn``, or
-``models.moe_a2a.moe_ffn_sharded`` over the active mesh's lanes under
-``moe_a2a.set_moe_impl("a2a")``, as in the reference; its aux loss is
-the layer's.
+``models.moe_a2a.moe_ffn_whole`` over the active mesh's positions (lanes
+of one device, or ranks) under ``moe_a2a.set_moe_impl("a2a")``, as in
+the reference; its aux loss is the layer's.
 """
 from __future__ import annotations
 
@@ -166,7 +166,7 @@ class CausalLM(TreeModel):
         h = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
         if cfg.family == FAMILY_MOE:
             if moe_a2a.moe_impl() == "a2a":
-                f, aux = moe_a2a.moe_ffn_sharded(p["moe"], h, cfg)
+                f, aux = moe_a2a.moe_ffn_whole(p["moe"], h, cfg)
             else:
                 f, aux = moe_mod.moe_ffn(p["moe"], h, cfg)
         else:

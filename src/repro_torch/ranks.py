@@ -12,15 +12,18 @@ never falls back to the CPU.
 
 :class:`RankAxis` is one axis of a mesh laid over ranks
 (``core.distributed.SearchMesh``): its process group, its size in ranks and
-this rank's coordinate, with the two collectives the port issues.  They
-keep the lanes path's bits:
+this rank's coordinate, with the collectives the port issues along it
+(``all_reduce``, ``gather``, ``all_to_all``);
+:func:`broadcast` sends a tensor from one rank to the whole group (the
+serving engine's control messages).  They keep the lanes path's bits:
 
 * nothing is sent as ``bool`` (NCCL has no bool type): uint8 and int32;
 * a float is never summed by ``all_reduce`` (its result would depend on
   the ranks' order): float values are gathered and added in lane order by
   the caller; integer sums and float maxima are exact in any order;
 * a gloo group carrying CUDA tensors stages them through host memory
-  (:func:`transport` says so).
+  (:func:`transport` says so);
+* nothing is pickled: a message is a header tensor, then its payload.
 """
 from __future__ import annotations
 
@@ -33,9 +36,9 @@ import torch.distributed as dist
 
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
 
-# this rank's device, and the default search mesh over the group
-# (ann.index.default_search_mesh); both dropped with the group
-_STATE = {"device": None, "search_mesh": None}
+# this rank's device, the group's timeout, and the default search mesh over
+# the group (ann.index.default_search_mesh); dropped with the group
+_STATE = {"device": None, "timeout": None, "search_mesh": None}
 
 
 def init_ranks(device=None, backend: Optional[str] = None,
@@ -77,7 +80,7 @@ def init_ranks(device=None, backend: Optional[str] = None,
     dist.init_process_group(backend, init_method=init_method or "env://",
                             rank=rank, world_size=world, timeout=timeout,
                             **kw)
-    _STATE["device"] = dev
+    _STATE.update(device=dev, timeout=timeout)
     return dev
 
 
@@ -85,7 +88,7 @@ def shutdown() -> None:
     """Leave the process group (every rank calls it)."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _STATE.update(device=None, search_mesh=None)
+    _STATE.update(device=None, timeout=None, search_mesh=None)
 
 
 def is_up() -> bool:
@@ -105,6 +108,12 @@ def device() -> torch.device:
     if _STATE["device"] is None:
         raise RuntimeError("no process group is up: call init_ranks first")
     return _STATE["device"]
+
+
+def timeout() -> datetime.timedelta:
+    """How long a collective of the group waits for its peers before it
+    fails (``DEFAULT_TIMEOUT`` when no group is up)."""
+    return _STATE["timeout"] or DEFAULT_TIMEOUT
 
 
 def backend() -> Optional[str]:
@@ -136,6 +145,22 @@ def barrier() -> None:
             dist.barrier()
 
 
+def _check_payload(t: torch.Tensor) -> None:
+    if t.dtype == torch.bool:
+        raise TypeError("send bool as uint8: NCCL has no bool type")
+
+
+def broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """``t`` of rank ``src`` on every rank of the group, as a new tensor on
+    ``t``'s device (the other ranks pass a tensor of the same shape and
+    dtype to receive into); waits at most :func:`timeout`."""
+    _check_payload(t)
+    x = t.detach().to("cpu" if _staged(t) else t.device,
+                      copy=True).contiguous()
+    dist.broadcast(x, src=src)
+    return x.to(t.device)
+
+
 class RankAxis(NamedTuple):
     """One mesh axis laid over ranks: its process group, its size in ranks
     and this rank's coordinate along it."""
@@ -147,8 +172,7 @@ class RankAxis(NamedTuple):
         """``op`` ("sum" or "max") of ``t`` over the axis's ranks, as a new
         tensor on ``t``'s device.  Integer sums and maxima only, besides a
         float max: a float sum would depend on the ranks' order."""
-        if t.dtype == torch.bool:
-            raise TypeError("send bool as uint8: NCCL has no bool type")
+        _check_payload(t)
         if op == "sum" and t.is_floating_point():
             raise TypeError("a float sum over ranks depends on their order: "
                             "gather the values and add them in lane order")
@@ -160,11 +184,26 @@ class RankAxis(NamedTuple):
 
     def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order."""
-        if t.dtype == torch.bool:
-            raise TypeError("send bool as uint8: NCCL has no bool type")
+        _check_payload(t)
         x = t.detach().contiguous()
         if _staged(t, self.group):
             x = x.cpu()
         outs = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(outs, x, group=self.group)
         return torch.cat(outs, dim=dim).to(t.device)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` split into ``size`` equal blocks along dim 0, block j sent
+        to the rank at coordinate j; returns the blocks received, in the
+        senders' order along dim 0 (``jax.lax.all_to_all`` with
+        ``split_axis = concat_axis = 0``)."""
+        _check_payload(t)
+        if t.shape[0] % self.size:
+            raise ValueError(f"dim 0 of {tuple(t.shape)} does not split "
+                             f"into {self.size} equal blocks")
+        x = t.detach().contiguous()
+        if _staged(t, self.group):
+            x = x.cpu()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return out.to(t.device)

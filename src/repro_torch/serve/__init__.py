@@ -1,6 +1,7 @@
-# The port's serving stack (port of repro.serve, single-device): the LM
-# engine, the bucketed ANN engine, the async coalescer with its cache and
-# admission control, the replica router, and kNN-LM retrieval.
+# The port's serving stack (port of repro.serve): the LM engine, the
+# bucketed ANN engine (on one device, or over ranks with rank 0 the
+# controller), the async coalescer with its cache and admission control,
+# the replica router, and kNN-LM retrieval.
 from repro_torch.serve.engine import ServeEngine  # noqa: F401
 from repro_torch.serve.ann_engine import AnnEngine, ServeResult  # noqa: F401
 from repro_torch.serve.coalescer import AsyncAnnEngine  # noqa: F401

@@ -38,12 +38,41 @@ In both sharded modes every bucket must split evenly over the mesh's
 (the mesh's) device; the padded chunk is built there; results come back to
 the host as numpy.
 
+**Over ranks** (a mesh made with ``ranks=``, or ``mesh=None`` in sharded
+mode while a process group is up: ``ann.index.default_search_mesh``, (1,
+world) over the ranks) every rank builds the same engine on its own part
+of the index (corpus mode: its block of shards).  Rank 0 is the
+controller, the port's counterpart of the reference's single controller:
+it alone calls :meth:`AnnEngine.search` (directly, from a coalescer or a
+router) and owns the counters, the latency sketches and any result cache.
+For each bucket it dispatches it broadcasts a header (op, bucket, rows,
+dim) and the padded (bucket, d) f32 queries, and every rank runs the
+bucket's searcher on them; the searcher's merge or gather gives rank 0 the
+whole batch.  The other ranks call :meth:`AnnEngine.run_worker`, which
+serves buckets until rank 0's :meth:`AnnEngine.close` sends STOP.  On rank
+0 the header, the payload and the search are issued under one lock, so
+that threads searching one engine never interleave two buckets'
+collectives; a request is validated before any header is sent; an idle
+controller sends a no-op header every quarter of the group's timeout, so
+that a worker's wait fails (with the group's error) only when the
+controller is gone.
+
 Typical use::
 
     engine = AnnIndex.load(path).serve(params)
     engine.warmup()                     # one search per bucket up front
     res = engine.search(queries)        # (B, d) for any B
     print(engine.stats())               # recall / latency / cache counters
+
+Over ranks, under torchrun (every rank)::
+
+    ranks.init_ranks()
+    engine = index.serve(SearchParams(algorithm="sharded"))
+    if ranks.rank() == 0:
+        ...                             # engine.search / a coalescer
+        engine.close()                  # the workers return
+    else:
+        engine.run_worker()
 """
 from __future__ import annotations
 
@@ -55,8 +84,8 @@ import numpy as np
 import torch
 
 from repro_torch import ranks as rank_mod
-from repro_torch.ann.index import (AnnIndex, normalize_queries,
-                                   remap_result_ids)
+from repro_torch.ann.index import (AnnIndex, default_search_mesh,
+                                   normalize_queries, remap_result_ids)
 from repro_torch.ann.spec import SearchParams
 from repro_torch.core.bfis import (DistFn, bfis_search_batch,
                                    hnsw_search_batch, resolve_dist_fn,
@@ -88,10 +117,8 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-_OVER_RANKS = (
-    "serving over ranks is not ported (ROADMAP.md §1 item 8: a controller "
-    "that broadcasts each bucket to worker ranks); search a mesh over ranks "
-    "with index.search on every rank")
+# the header rank 0 broadcasts before each bucket: (op, bucket, rows, dim)
+_OP_STOP, _OP_NOOP, _OP_SEARCH = 0, 1, 2
 
 
 def _mesh_data_size(mesh) -> int:
@@ -128,8 +155,6 @@ class AnnEngine:
     ):
         self.obs = obs if obs is not None else NULL_OBS
         self.index: Optional[AnnIndex] = None
-        if getattr(mesh, "over_ranks", False):
-            raise NotImplementedError(_OVER_RANKS)
         self.mesh = mesh
         self.mode = "single"
         self._normalize = False
@@ -196,8 +221,8 @@ class AnnEngine:
                     "index.serve(SearchParams(algorithm='sharded'), "
                     "mesh=...)")
             if mesh is None and rank_mod.is_up():
-                # the default mesh would be laid over the group's ranks
-                raise NotImplementedError(_OVER_RANKS)
+                # the default mesh, (1, world) over the group's ranks
+                self.mesh = default_search_mesh(self.index.device)
             # walker-sharded mode: every bucket dispatches through the
             # facade's sharded searcher (core/distributed.py)
             self.mode = "sharded"
@@ -253,6 +278,21 @@ class AnnEngine:
         self.padded_queries = 0
         self.cache_hits = 0
         self.cache_misses = 0
+        # over ranks: rank 0 dispatches every bucket to the workers
+        self.over_ranks = (self.mode in ("sharded", "corpus")
+                           and getattr(self.mesh, "over_ranks", False))
+        self.controller = not self.over_ranks or rank_mod.rank() == 0
+        # header, payload and search of one bucket, never interleaved
+        self._dispatch_lock = threading.Lock()
+        self._closed = False
+        self._last_sent = time.monotonic()
+        self._stop = threading.Event()
+        self._keepalive: Optional[threading.Thread] = None
+        if self.over_ranks and self.controller:
+            self._keepalive = threading.Thread(
+                target=self._keepalive_loop, name="ann-engine-keepalive",
+                daemon=True)
+            self._keepalive.start()
         # latency distributions in bounded log-bucketed sketches (one
         # global, one per bucket)
         self._latency_hist = LogHistogram(rel_err=LATENCY_REL_ERR)
@@ -308,6 +348,89 @@ class AnnEngine:
             return ids, dists, stats
         return fn
 
+    # -- dispatch over ranks ---------------------------------------------------
+
+    def _check_controller(self, what: str) -> None:
+        if not self.controller:
+            raise RuntimeError(
+                f"rank {rank_mod.rank()} is a worker of an engine over "
+                f"ranks: rank 0 calls {what}(), the others run_worker()")
+        if self._closed:
+            raise RuntimeError("the engine is closed")
+
+    def _send_header(self, op: int, bucket: int = 0, rows: int = 0,
+                     dim: int = 0) -> None:
+        rank_mod.broadcast(torch.tensor([op, bucket, rows, dim],
+                                        dtype=torch.int64,
+                                        device=self.device))
+        self._last_sent = time.monotonic()
+
+    def _dispatch(self, bucket: int, queries: torch.Tensor, rows: int):
+        """The bucket's searcher on the padded (bucket, d) ``queries``
+        (``rows`` of them real).  Over ranks, rank 0 first broadcasts the
+        header and the queries, all under the dispatch lock, and every
+        worker runs the same searcher on them."""
+        if not self.over_ranks:
+            return self._compiled(bucket)(queries)
+        with self._dispatch_lock:
+            if self._closed:
+                raise RuntimeError("the engine is closed")
+            self._send_header(_OP_SEARCH, bucket, rows, queries.shape[1])
+            queries = rank_mod.broadcast(queries.contiguous())
+            return self._compiled(bucket)(queries)
+
+    def _keepalive_loop(self) -> None:
+        """Rank 0: a no-op header whenever a quarter of the group's
+        timeout passes without one."""
+        period = rank_mod.timeout().total_seconds() / 4
+        while not self._stop.wait(period / 4):
+            with self._dispatch_lock:
+                if self._closed:
+                    return
+                if time.monotonic() - self._last_sent >= period:
+                    self._send_header(_OP_NOOP)
+
+    def run_worker(self) -> int:
+        """A worker rank's serving loop: run each bucket rank 0
+        broadcasts, until it sends STOP (:meth:`close`).  A header that
+        does not come within the group's timeout raises the group's error.
+        Returns the number of buckets served."""
+        if not self.over_ranks or self.controller:
+            raise RuntimeError("run_worker() is for ranks 1.. of an engine "
+                               "over ranks; rank 0 calls search()")
+        served = 0
+        header = torch.zeros(4, dtype=torch.int64, device=self.device)
+        while True:
+            op, bucket, rows, dim = rank_mod.broadcast(header).tolist()
+            if op == _OP_STOP:
+                self._closed = True
+                return served
+            if op == _OP_NOOP:
+                continue
+            if (op != _OP_SEARCH or bucket not in self.bucket_sizes
+                    or dim != self.graph.dim or not 0 < rows <= bucket):
+                raise RuntimeError("bad dispatch header "
+                                   f"{(op, bucket, rows, dim)}")
+            queries = rank_mod.broadcast(torch.empty(
+                (bucket, dim), dtype=torch.float32, device=self.device))
+            self._compiled(bucket)(queries)
+            served += 1
+
+    def close(self) -> None:
+        """Over ranks, on rank 0: send STOP, which ends every worker's
+        :meth:`run_worker`; the engine serves no more.  Nothing to do on a
+        single device or a worker.  Idempotent."""
+        if not (self.over_ranks and self.controller):
+            return
+        self._stop.set()
+        with self._dispatch_lock:
+            if not self._closed:
+                self._closed = True
+                self._send_header(_OP_STOP)
+        if self._keepalive is not None:
+            self._keepalive.join()
+            self._keepalive = None
+
     def bucket_for(self, batch: int) -> int:
         """Smallest bucket >= batch (top bucket for oversize chunks)."""
         for b in self.bucket_sizes:
@@ -323,6 +446,7 @@ class AnnEngine:
         Warmup does not touch the serving counters, so post-warmup metrics
         reflect real traffic only.
         """
+        self._check_controller("warmup")
         dim = dim if dim is not None else self.graph.dim
         hits, misses = self.cache_hits, self.cache_misses
         out = {}
@@ -330,7 +454,7 @@ class AnnEngine:
             q = torch.zeros((b, dim), dtype=torch.float32,
                             device=self.device)
             t0 = time.perf_counter()
-            self._compiled(b)(q)
+            self._dispatch(b, q, b)
             _sync(self.device)
             out[b] = time.perf_counter() - t0
         with self._lock:
@@ -370,7 +494,7 @@ class AnnEngine:
                                    enabled=obs.profile,
                                    cuda=self.device.type == "cuda"):
                 t0 = time.perf_counter()
-                ids, dists, stats = self._compiled(bucket)(queries)
+                ids, dists, stats = self._dispatch(bucket, queries, b)
                 if record:
                     _sync(self.device)
                     ms = (time.perf_counter() - t0) * 1e3
@@ -390,6 +514,7 @@ class AnnEngine:
         With ``gt_ids`` (B, >=k) the engine also folds recall@k into its
         running quality counters.
         """
+        self._check_controller("search")
         if not isinstance(queries, torch.Tensor):
             queries = torch.as_tensor(np.asarray(queries, np.float32))
         queries = queries.to(self.device, torch.float32)
@@ -397,6 +522,10 @@ class AnnEngine:
             raise ValueError(
                 f"queries must be (B, d) with B >= 1, got "
                 f"{tuple(queries.shape)}")
+        if self.over_ranks and queries.shape[1] != self.graph.dim:
+            # refused before any header goes out: no worker waits for it
+            raise ValueError(f"queries of dim {queries.shape[1]}; the "
+                             f"index holds dim {self.graph.dim}")
         bsz = queries.shape[0]
         top = self.bucket_sizes[-1]
         obs = self.obs

@@ -155,7 +155,9 @@ class AsyncAnnEngine:
 
     ``engine`` is anything with ``search(queries (B, d)) -> ServeResult``
     and a ``cfg.k`` — in practice an :class:`~repro_torch.serve.AnnEngine`
-    (the port serves the single-device mode) or a
+    (on one device, or rank 0's engine over ranks: the coalescer lives on
+    rank 0 and reaches the workers only through the engine's serialized
+    dispatch) or a
     :class:`~repro_torch.serve.ReplicaRouter` over several.
 
     With ``start=False`` no dispatcher thread runs and batches are formed
@@ -542,7 +544,8 @@ class AsyncAnnEngine:
         while work is outstanding, so close loops (flush + wait) until the
         queue is empty AND no flush is mid-dispatch — only then is every
         accepted future settled (the drain-under-load regression test in
-        ``tests/test_serve_tier.py`` pins this)."""
+        ``tests/test_serve_tier.py`` pins this).  An engine over ranks is
+        closed last, which ends its workers' ``run_worker``."""
         with self._lock:
             self._closed = True
             if not drain:
@@ -558,11 +561,14 @@ class AsyncAnnEngine:
                 self.flush()
                 with self._lock:
                     if not self._pending and not self._inflight:
-                        return
+                        break
                     if self._inflight:
                         # the 1 s timeout only guards a lost wakeup; the
                         # finally-block notify fires as each flush lands
                         self._lock.wait(timeout=1.0)
+        if getattr(self.engine, "over_ranks", False):
+            # an engine over ranks stops its workers
+            self.engine.close()
 
     def __enter__(self):
         return self

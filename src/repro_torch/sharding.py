@@ -18,12 +18,13 @@ and a spec is a plain tuple with the entries of the reference's
 computation there is nothing to constrain: :func:`shard` returns its
 input, and the specs only name where each dimension would go.
 ``use_rules``'s mesh is what ``models.moe_a2a.moe_ffn_sharded`` splits its
-lanes by.  :func:`param_shardings` is the reference's ``NamedSharding``
-tree on a mesh laid over ranks: each leaf's spec as DTensor placements on
-the mesh's ``DeviceMesh`` (``Shard(i)`` on the mesh dims that split tensor
-dim i, ``Replicate()`` on the others), which :func:`place` applies.  On a
-lanes-only mesh, whose positions all sit on one device, it raises, naming
-ROADMAP.md §1 item 8.
+positions by (lanes of one device, or ranks).  :func:`param_shardings` is
+the reference's ``NamedSharding`` tree on a mesh laid over ranks: each
+leaf's spec as DTensor placements on the mesh's ``DeviceMesh``
+(``Shard(i)`` on the mesh dims that split tensor dim i, ``Replicate()`` on
+the others), which :func:`place` applies and which the MoE's FSDP gather
+reads.  On a lanes-only mesh, whose positions all sit on one device, it
+raises, naming that entry of ROADMAP.md §1 item 8.
 """
 from __future__ import annotations
 
@@ -90,6 +91,16 @@ def use_rules(rules: Rules, mesh=None, act_rules: Optional[Rules] = None):
         _active_rules.reset(t1)
         _active_mesh.reset(t2)
         _active_act_rules.reset(t3)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the active mesh inside the block; the rules stay."""
+    token = _active_mesh.set(mesh)
+    try:
+        yield
+    finally:
+        _active_mesh.reset(token)
 
 
 def current_mesh():
@@ -250,8 +261,9 @@ def param_shardings(params, mesh, rules: Optional[Rules] = None):
     Every rank calls it with the same tree."""
     if not getattr(mesh, "over_ranks", False):
         raise NotImplementedError(
-            "placing parameters needs a mesh over ranks (ROADMAP.md §1 item "
-            "8: make_search_mesh(..., ranks=...)): every position of a "
+            "param_shardings on a lanes-only mesh is not ported (ROADMAP.md "
+            "§1 item 8): place parameters on a mesh over ranks "
+            "(make_search_mesh(..., ranks=...)); every position of a "
             "lanes-only mesh sits on one device, where param_specs names "
             "each leaf's axes")
 

@@ -27,10 +27,14 @@ the whole batch, takes its block of rows and keeps its own lanes' residual
 rows, as a DTensor of the whole (n, ...) array split over the ``data``
 ranks, so a checkpoint gathers every rank's rows in lane order; the
 parameters stay replicated and come out of the step bit-identical on every
-rank, and bit for bit the lanes-only step's.
+rank, and bit for bit the lanes-only step's.  Inside the step an active
+mesh over ranks is read as lanes of the rank's device, so that a moe
+layer under ``set_moe_impl("a2a")`` splits each lane's own rows as the
+lanes-only step does.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -40,7 +44,7 @@ from repro_torch.core.distributed import SearchMesh, check_mesh_device
 from repro_torch.models.params import unstack
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim.grad import compressed_psum
-from repro_torch.sharding import whole
+from repro_torch.sharding import current_mesh, use_mesh, whole
 from repro_torch.treepath import tree_leaves, tree_map
 
 
@@ -151,6 +155,22 @@ def make_train_step(model, tcfg: TrainConfig):
     return train_step
 
 
+@contextlib.contextmanager
+def _own_rows():
+    """The active mesh, when it is laid over ranks, as lanes of this rank's
+    device inside the block.  A layer that splits over the active mesh
+    (``moe_a2a.moe_ffn_whole`` under ``set_moe_impl("a2a")``) over ranks
+    takes the same whole activations on every rank, while the compressed
+    step gives each rank its own rows: as lanes, each lane's rows split
+    over the mesh's positions on this rank alone, as they do in the
+    lanes-only step, so the two steps stay equal bit for bit."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.over_ranks:
+        mesh = SearchMesh(mesh.axis_names, mesh.axis_sizes, mesh.device)
+    with use_mesh(mesh):
+        yield
+
+
 def make_compressed_dp_train_step(model, tcfg: TrainConfig, mesh: SearchMesh,
                                   data_axis: str = "data"):
     """Explicit-DP train step with int8 gradient all-reduce + error
@@ -216,11 +236,12 @@ def make_compressed_dp_train_step(model, tcfg: TrainConfig, mesh: SearchMesh,
                              "init the state with grad_compression='int8'")
         split = {k: block(k, v) for k, v in batch.items()}
         grads = _zeros(state.params, lanes=lanes)
-        losses = torch.stack([
-            loss_and_grad(model, state.params,
-                          {k: v[i] for k, v in split.items()}, remat,
-                          tree_map(lambda g, i=i: g[i], grads))
-            for i in range(lanes)])
+        with _own_rows():
+            losses = torch.stack([
+                loss_and_grad(model, state.params,
+                              {k: v[i] for k, v in split.items()}, remat,
+                              tree_map(lambda g, i=i: g[i], grads))
+                for i in range(lanes)])
         mean_grads, new_err = compressed_psum(
             grads, tree_map(rows, state.err, state.params), axis)
         del grads

@@ -282,25 +282,54 @@ def test_causal_lm_a2a_forward_matches_reference_mesh(mesh_ref):
                                rtol=0, atol=1e-6)
 
 
+def test_lane_collectives_without_ranks():
+    """On a lanes-only mesh the exchange is the transpose of the (source,
+    destination) lanes, a fan-out's backward adds the lanes' gradients in
+    lane order, and this rank's token block is every token."""
+    t = torch.arange(2 * 3 * 3 * 5).reshape(2, 3, 3, 5)
+    assert torch.equal(t_a2a._exchange(t, None), t.transpose(1, 2))
+    w = torch.randn(4, 3, requires_grad=True)
+    copies = t_a2a.fan_out(w, ((None, 2), (None, 3)))
+    assert len(copies) == 6
+    scale = torch.arange(1.0, 7.0)
+    sum(c.sum() * s for c, s in zip(copies, scale)).backward()
+    assert torch.equal(w.grad, torch.full((4, 3), 21.0))
+    _, cfg = _smoke("qwen3-moe-30b-a3b")
+    x = torch.randn((2, 8, 64))
+    assert torch.equal(t_a2a.token_block(x, cfg, make_search_mesh(
+        (2, 4), device="cpu")), x.reshape(16, 64))
+
+
+@pytest.mark.parametrize("mesh", [(2, 4), (1, 8)], ids=["a2a", "tp"])
+def test_lanes_gradients_match_moe_ffn(mesh):
+    """Where nothing drops, ``moe_ffn_whole`` on a lanes-only mesh is
+    ``moe_ffn_sharded`` and equals ``moe_ffn`` with its gradients (x, the
+    router and the three expert stacks) at f32's 1e-5."""
+    _, cfg = _smoke("qwen3-moe-30b-a3b", capacity_factor=8.0)
+    p0 = t_moe.moe_init(torch.Generator().manual_seed(0), cfg,
+                        torch.float32)
+    x0 = torch.randn((2, 8, 64), generator=torch.Generator().manual_seed(1))
+    gy = torch.randn((2, 8, 64), generator=torch.Generator().manual_seed(2))
+    runs = []
+    for fn in (t_moe.moe_ffn, t_a2a.moe_ffn_whole, t_a2a.moe_ffn_sharded):
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        with use_rules(DEFAULT_RULES, make_search_mesh(mesh, device="cpu")):
+            y, aux = fn(p, x, cfg)
+        ((y * gy).sum() + 10 * aux).backward()
+        runs.append([y, aux, x.grad] + [p[k].grad for k in sorted(p)])
+    base, whole, sharded = runs
+    for a, b, c in zip(base, whole, sharded):
+        assert torch.equal(b, c)
+        _close(b, a.detach().numpy(), 1e-5)
+
+
 def test_mesh_on_another_device_raises():
     _, cfg = _smoke("qwen3-moe-30b-a3b")
     p = t_moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
     mesh = make_search_mesh((1, 4), device="meta")
     with use_rules(DEFAULT_RULES, mesh):
         with pytest.raises(ValueError, match=r"§1 item 8"):
-            t_a2a.moe_ffn_sharded(p, torch.zeros((1, 4, 64)), cfg)
-
-
-def test_mesh_over_ranks_raises():
-    """The all_to_all over ranks is not ported: a mesh laid over ranks is
-    refused, not run as every position on each rank."""
-    _, cfg = _smoke("qwen3-moe-30b-a3b")
-    p = t_moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
-    mesh = dataclasses.replace(make_search_mesh((1, 4), device="cpu"),
-                               ranks=(1, 4), device_mesh=object())
-    assert mesh.over_ranks
-    with use_rules(DEFAULT_RULES, mesh):
-        with pytest.raises(NotImplementedError, match=r"§1 item 8"):
             t_a2a.moe_ffn_sharded(p, torch.zeros((1, 4, 64)), cfg)
 
 

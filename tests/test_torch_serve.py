@@ -251,6 +251,28 @@ def test_sharded_modes_raise_naming_their_item(files, data):
             mod(graph, cfg, algorithm="sharded")
 
 
+def test_one_device_engine_has_no_worker_loop(files, data):
+    """Off a mesh over ranks an engine is its own controller: ``close``
+    stops nothing and the engine goes on serving (a coalescer's close
+    leaves it open too), and ``run_worker`` is refused."""
+    _, path = files["l2"]
+    port = TIndex.load(path, device="cpu")
+    _, q = data
+    sharded = dict(PARAMS, algorithm="sharded", global_rounds=6)
+    for params, mesh in ((TParams(**PARAMS), None),
+                         (TParams(**sharded),
+                          td.make_search_mesh((1, 2), device="cpu"))):
+        engine = port.serve(params, mesh=mesh, bucket_sizes=BUCKETS)
+        assert not engine.over_ranks and engine.controller
+        want = engine.search(q[:3])
+        with pytest.raises(RuntimeError, match="run_worker"):
+            engine.run_worker()
+        srv = AsyncAnnEngine(engine, start=False)
+        srv.close()
+        engine.close()
+        _same_result(want, engine.search(q[:3]))
+
+
 def test_bad_arguments_raise_as_reference(files):
     ref_idx, path = files["l2"]
     port = TIndex.load(path, device="cpu")

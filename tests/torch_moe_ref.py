@@ -34,20 +34,14 @@ from repro.models import moe as moe_mod                 # noqa: E402
 from repro.models import moe_a2a                        # noqa: E402
 from repro.sharding import DEFAULT_RULES, use_rules     # noqa: E402
 
-MESH = ((2, 4), ("data", "model"))
-X_SHAPE = (4, 32, 32)                   # 128 tokens, 16 a position (a2a)
-# (case name, experts, capacity factor)
-FFN_CASES = [(f"{path}_cf{cf:g}", e, cf)
-             for path, e in (("a2a", 8), ("tp", 2)) for cf in (8.0, 1.0)]
-LM_ARCH = "qwen3-moe-30b-a3b"
-LM_TOKENS = (2, 16)
+from torch_moe_cases import (FFN_CASES, FFN_FIELDS, LM_ARCH,  # noqa: E402
+                             LM_TOKENS, MESH, TOP_K, X_SHAPE)
 
 
 def ffn_config(num_experts: int, capacity_factor: float) -> ModelConfig:
     return ModelConfig(
-        name="t", family=FAMILY_MOE, num_layers=1, d_model=32, num_heads=4,
-        num_kv_heads=2, d_ff=16, vocab_size=64, dtype="float32",
-        moe=MoEConfig(num_experts=num_experts, top_k=2,
+        family=FAMILY_MOE, **FFN_FIELDS,
+        moe=MoEConfig(num_experts=num_experts, top_k=TOP_K,
                       capacity_factor=capacity_factor))
 
 
