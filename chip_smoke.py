@@ -292,6 +292,26 @@ Phases, one JSON line each:
                queries/s, mean batch.  The kernels line's rows gain
                ``launches_ranks``.
 
+ 22. partition — last: the dry run's partitioner (launch/dryrun.py).  (a)
+               qwen2.5-3b decode_32k on 16x16 (gspmd) and
+               qwen3-moe-30b-a3b decode_32k on 2x16x16 (gspmd and a2a)
+               traced on the meta device as rank 0 of a counting group of
+               256 or 512 ranks in spawned workers, their collective
+               bytes a card by kind, peak, fit, dominant term and trace
+               seconds; (b) llama3.2-3b at full width, 2 layers, f32,
+               through the DTensor path (parameters placed by
+               param_shardings on a (1, world) mesh over an NCCL group of
+               every card, this process rank 0): the forward's logits, a
+               prefill of 8 x 64 and 8 decode steps, one train step of 2
+               microbatches (loss, norm, first moments), each equal to the
+               plain one-card run bit for bit on a world of 1 (within
+               1e-5 of the largest value on more); (c) the op record of
+               (b)'s decode step (8 against 128) on the card equal to the
+               counting group's meta record of the same rank and mesh op
+               for op, argument bytes exact.  None of the six kernels
+               launched; the kernels line's rows gain
+               ``launches_partition`` (0).
+
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
 int8dist_rowgather at the speedann and topm steps and sort_pairs on a
@@ -311,6 +331,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import gc
 import importlib.util
@@ -4972,6 +4993,299 @@ def ranks_phase(seed: int, smi, keep: dict, work: str):
     return out, launches
 
 
+# phase 22 (partition): the dry run's partitioner (launch/dryrun.py).  (a)
+# PARTITION_TRACES, full-width cells traced on the meta device as rank 0 of
+# a counting group of 256 or 512 ranks in the dry run's workers; (b)
+# PARTITION_ARCH at full width with PARTITION_LAYERS layers in f32 through
+# the DTensor path over an NCCL group of every card on a (1, world) mesh,
+# against the plain one-card run; (c) (b)'s decode step recorded on the card
+# against the counting group's meta record of the same rank and mesh.
+PARTITION_TRACES = (("qwen2.5-3b", "decode_32k", "16x16", "gspmd"),
+                    ("qwen3-moe-30b-a3b", "decode_32k", "2x16x16", "gspmd"),
+                    ("qwen3-moe-30b-a3b", "decode_32k", "2x16x16", "a2a"))
+PARTITION_ARCH = "llama3.2-3b"
+PARTITION_LAYERS = 2
+PARTITION_B, PARTITION_PROMPT, PARTITION_SMAX = 8, 64, 128
+PARTITION_STEPS = 8
+PARTITION_MICROBATCHES = 2
+PARTITION_REL = 1e-5          # f32, of the largest value (world > 1)
+
+
+def partition_cfg():
+    """(b)'s model: PARTITION_ARCH at full width, PARTITION_LAYERS layers,
+    computing in f32."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(PARTITION_ARCH),
+                               num_layers=PARTITION_LAYERS, dtype="float32")
+
+
+def partition_shape():
+    """(c)'s decode cell: a batch of PARTITION_B against PARTITION_SMAX."""
+    from repro_torch.config import ShapeConfig
+    return ShapeConfig("decode_partition", PARTITION_SMAX, PARTITION_B,
+                       "decode")
+
+
+def partition_inputs(cfg, seed: int) -> dict:
+    """(b)'s numpy inputs from ``seed``: prompt tokens (B, P), the decode
+    tokens (PARTITION_STEPS, B, 1), train targets and a 0/1 mask."""
+    rng = np.random.RandomState(seed + 22)
+    v, b, p = cfg.vocab_size, PARTITION_B, PARTITION_PROMPT
+    return {"tokens": rng.randint(0, v, (b, p)),
+            "steps": rng.randint(0, v, (PARTITION_STEPS, b, 1)),
+            "targets": rng.randint(0, v, (b, p)),
+            "mask": (rng.rand(b, p) > 0.25).astype(np.float32)}
+
+
+def partition_run(model, tree, cfg, x: dict, mesh=None, *, data: int = 1,
+                  s_max: int = PARTITION_SMAX,
+                  microbatches: int = PARTITION_MICROBATCHES) -> dict:
+    """The forward's logits, a prefill and a decode step for each row of
+    ``x["steps"]`` (in place), and one train step of ``microbatches``
+    microbatches (loss, norm, the first moments ``m/<leaf>``) on ``tree``
+    (the weights, whole on this rank) and the numpy inputs ``x``
+    (:func:`partition_inputs`).  With ``mesh`` (over ranks) the weights,
+    state and inputs are DTensors placed by the rules and every result is
+    gathered whole; with none, the train batch's rows come in the order of
+    the microbatches of a batch split over ``data`` ranks
+    (``train_step.microbatch_rows``), so both steps take the same ones."""
+    import torch
+    from repro_torch.launch.dryrun import place_arguments, train_config_for
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.sharding import (ACT_RULES, DEFAULT_RULES, RankSharding,
+                                      _placements, place, resolve_spec,
+                                      use_rules, whole)
+    from repro_torch.train.train_step import (TrainState, make_train_step,
+                                              microbatch_rows)
+    from repro_torch.treepath import flatten_with_path, keystr_simple
+    from repro_torch.treepath import tree_map
+    dev = model.device
+    b = x["tokens"].shape[0]
+
+    def put(a, *logical):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if t.dtype == torch.int64:
+            t = t.to(torch.int32)
+        if mesh is None:
+            return t
+        spec = resolve_spec(tuple(t.shape), logical, mesh, ACT_RULES)
+        return place(t, RankSharding(mesh.device_mesh, _placements(
+            spec, mesh.axis_names), spec, mesh.device))
+    out = {}
+    with use_rules(DEFAULT_RULES, mesh) if mesh is not None \
+            else contextlib.nullcontext():
+        params = (place_arguments({"params": tree}, mesh)["params"]
+                  if mesh is not None else tree)
+        tok = put(x["tokens"], "batch", "seq")
+        out["logits"] = whole(model.forward(params, tok)[0])
+        logits, st = model.prefill(params, tok, s_max=s_max)
+        out["decode_0"] = whole(logits)
+        for i, step in enumerate(x["steps"]):
+            logits, st = model.decode_step(
+                params, st, put(step, "batch", None), inplace=True)
+            out[f"decode_{i + 1}"] = whole(logits)
+        del params, st
+        tcfg = dataclasses.replace(train_config_for(cfg),
+                                   microbatches=microbatches)
+        own = tree_map(lambda t: t.detach().clone(), tree)
+        state = TrainState(own, adamw_init(own, tcfg), None)
+        if mesh is not None:
+            state = place_arguments({"state": state}, mesh)["state"]
+            order = list(range(b))
+        else:
+            order = microbatch_rows(b, data, microbatches)
+        batch = {k: put(x[k][order], "batch", "seq")
+                 for k in ("tokens", "targets", "mask")}
+        state, metrics = make_train_step(model, tcfg)(state, batch)
+        out["loss"] = whole(metrics["loss"])
+        out["grad_norm"] = whole(metrics["grad_norm"])
+        for path, m_ in flatten_with_path(state.opt["m"]):
+            out["m/" + keystr_simple(path)] = whole(m_)
+    return out
+
+
+def partition_compare(got: dict, want: dict, exact: bool) -> dict:
+    """The largest difference of each result, relative to its largest
+    value; raises unless every result is equal (``exact``) or within
+    PARTITION_REL."""
+    import torch
+    errs = {}
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            raise AssertionError(f"partition {k}: shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        scale = float(w.abs().max()) or 1.0
+        errs[k] = float((g.double() - w.double()).abs().max()) / scale
+        if exact and not torch.equal(g, w):
+            raise AssertionError(f"partition {k}: the DTensor run differs "
+                                 f"from the plain run ({errs[k]:.3e})")
+        if errs[k] > PARTITION_REL:
+            raise AssertionError(f"partition {k}: {errs[k]:.3e} relative "
+                                 f"> {PARTITION_REL}")
+    return errs
+
+
+def partition_body(rank: int, world: int, card: str, job: dict) -> dict:
+    """(b) and (c) on one rank of an NCCL group of ``world`` ranks: the
+    plain run on this card, then the DTensor run on a (1, world) mesh over
+    the ranks, compared (bit for bit on a world of 1); then the op record
+    of (c)'s decode step on the card.  Returns the comparison, walls,
+    launches and the record."""
+    import datetime
+    import torch
+    from repro_torch import ranks
+    from repro_torch.core.distributed import make_search_mesh
+    from repro_torch.launch.dryrun import record_cell
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = ranks.init_ranks(
+        device=card, backend="nccl", rank=rank, world=world,
+        init_method=f"file://{job['dir']}/rdv_partition",
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    out = {"rank": rank, "device": str(dev)}
+    try:
+        cfg = partition_cfg()
+        model = build_model(cfg, device=dev)
+        tree = model.init_tree(torch.Generator(device=dev).manual_seed(
+            job["seed"]))
+        x = partition_inputs(cfg, job["seed"])
+        t0 = time.perf_counter()
+        plain, out["plain_launches"] = counted(partition_run, model, tree,
+                                               cfg, x)
+        out["plain_s"] = time.perf_counter() - t0
+        mesh = make_search_mesh((1, world), ("data", "model"),
+                                ranks=(1, world))
+        t0 = time.perf_counter()
+        got, out["launches"] = counted(partition_run, model, tree, cfg, x,
+                                       mesh)
+        out["dtensor_s"] = time.perf_counter() - t0
+        out["rel_err"] = partition_compare(got, plain, exact=world == 1)
+        out["exact"] = world == 1
+        del plain, got, tree
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        (out["record"], out["arg_bytes"]), out["record_launches"] = counted(
+            record_cell, cfg, partition_shape(), mesh,
+            torch.Generator(device=dev).manual_seed(job["seed"]))
+        out["record_s"] = time.perf_counter() - t0
+    finally:
+        ranks.shutdown()
+    return out
+
+
+def _partition_entry(rank, world, card, job, path):
+    import torch
+    torch.save(partition_body(rank, world, card, job), path)
+
+
+def partition_phase(seed: int, smi):
+    """Phase 22: the dry run's partitioner.  (a) PARTITION_TRACES traced in
+    the counting workers while (b) and (c) run on the card: every card an
+    NCCL rank (this process rank 0), the DTensor run equal to the plain
+    run (bit for bit on one card), the card's decode record equal to the
+    meta record of the same rank and mesh op for op with the argument
+    bytes exact, none of the six kernels launched.  Returns (the phase's
+    line, its path launches)."""
+    import multiprocessing
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_profile import first_difference
+    from repro_torch.launch.roofline import collective_kind
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    out = {"phase": "partition", "card": smi, "cards": count}
+    if count < 2:
+        out["unverified"] = ("one card: a world of 1, every placement "
+                             "whole; a mesh over several cards waits for "
+                             "device_count() >= 2")
+    work = tempfile.mkdtemp(prefix="chip_partition_")
+    try:
+        traces = [(c, dryrun.partition_worker(c[2]).submit(
+            dryrun._partition_task, c[0], c[1], c[2], {"moe_impl": c[3]}))
+            for c in PARTITION_TRACES]
+        meta = dryrun.counting_worker(count).submit(
+            dryrun.record_task, partition_cfg(), partition_shape(),
+            (1, count))
+        job = {"dir": work, "seed": seed}
+        ctx = multiprocessing.get_context("spawn")
+        paths = {r: os.path.join(work, f"partition_rank{r}.pt")
+                 for r in range(1, count)}
+        procs = {r: ctx.Process(target=_partition_entry, args=(
+            r, count, f"cuda:{r}", job, paths[r])) for r in paths}
+        for p in procs.values():
+            p.start()
+        try:
+            outs = [partition_body(0, count, "cuda:0", job)]
+            for r, p in procs.items():
+                p.join(RANK_JOIN_S)
+                if p.is_alive() or p.exitcode != 0:
+                    raise AssertionError(
+                        f"partition rank {r} of {count}: " + (
+                            f"still runs after {RANK_JOIN_S} s"
+                            if p.is_alive() else f"exit code {p.exitcode}"))
+                outs.append(torch.load(paths[r], weights_only=False))
+        finally:
+            for p in procs.values():
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        launches = {}
+        for o in outs:
+            for part in ("plain_launches", "launches", "record_launches"):
+                launches[f"partition_{part}_rank{o['rank']}/ref"] = o[part]
+        check_launches(launches)
+        record, arg_bytes = meta.result()
+        lead = outs[0]
+        diff = first_difference(lead["record"], record)
+        if diff is not None or lead["arg_bytes"] != arg_bytes:
+            raise AssertionError(f"partition: the card's decode record "
+                                 f"differs from the meta record ({diff}; "
+                                 f"argument bytes {lead['arg_bytes']} vs "
+                                 f"{arg_bytes})")
+        if any(o["record"] != lead["record"] for o in outs):
+            raise AssertionError("partition: the ranks' records differ")
+        out["dtensor_vs_plain"] = {
+            "exact": lead["exact"], "arch": PARTITION_ARCH,
+            "layers": PARTITION_LAYERS, "batch": PARTITION_B,
+            "prompt": PARTITION_PROMPT, "decode_steps": PARTITION_STEPS,
+            "microbatches": PARTITION_MICROBATCHES,
+            "max_rel_err": max(max(o["rel_err"].values()) for o in outs),
+            "plain_s": [o["plain_s"] for o in outs],
+            "dtensor_s": [o["dtensor_s"] for o in outs]}
+        out["record"] = {"ops": len(record), "equal": True,
+                         "argument_bytes": arg_bytes,
+                         "collectives": sum(
+                             collective_kind(e[0]) is not None
+                             for e in record),
+                         "card_s": lead["record_s"]}
+        keep = ("collectives", "collective_wire_bytes", "t_collective_s",
+                "t_compute_s", "t_memory_s", "dominant", "fits", "trace_s",
+                "ops")
+        out["traces"] = []
+        for (arch, shape, mesh, impl), fut in traces:
+            facts = fut.result()
+            chips = facts["chips"]
+            if not any(facts["collectives"].values()):
+                raise AssertionError(f"partition {arch} {shape} {mesh} "
+                                     f"{impl}: no collective counted")
+            out["traces"].append(dict(
+                {k: facts[k] for k in keep}, arch=arch, shape=shape,
+                mesh=mesh, moe_impl=impl, chips=chips,
+                collective_bytes_per_card={
+                    k: v / chips for k, v in facts["collectives"].items()},
+                peak_bytes=facts["memory"]["peak_bytes"],
+                argument_bytes=facts["memory"]["argument_bytes"]))
+    finally:
+        dryrun.close_workers()
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5237,6 +5551,12 @@ def run_phases(args, work: str, t_start: float, name: str, smi) -> int:
         # the ANN cells' card shares launch rowgather; the LM cells none
         row["launches_launch"] = sum(c[row["name"]]
                                      for c in launch_launches.values())
+    parted, part_launches = partition_phase(args.seed, smi)
+    emit(parted)
+    for row in rows:
+        # the partitioned LM launches none of the six kernels
+        row["launches_partition"] = sum(c[row["name"]]
+                                        for c in part_launches.values())
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

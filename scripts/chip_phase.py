@@ -4,10 +4,11 @@ flags its ``main`` sets, and print the phase's line.
 
     PYTHONPATH=src python3 scripts/chip_phase.py ssm [--seed 0] > ssm.json
 
-Phases: ``train`` (16), ``moe`` (17), ``ssm`` (18), ``encdec`` (19) and
-``launch`` (20): the ones that need no index (``launch`` builds the rowgather
-kernel at its first launch); ``ranks`` (21) first runs the phases that
-make its inputs (4-5, 14 and 16's first steps; ``chip_smoke.ranks_alone``).
+Phases: ``train`` (16), ``moe`` (17), ``ssm`` (18), ``encdec`` (19),
+``launch`` (20) and ``partition`` (22): the ones that need no index
+(``launch`` builds the rowgather kernel at its first launch); ``ranks``
+(21) first runs the phases that make its inputs (4-5, 14 and 16's first
+steps; ``chip_smoke.ranks_alone``).
 Needs a CUDA device.
 """
 import argparse
@@ -24,7 +25,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("phase",
                     choices=("train", "moe", "ssm", "encdec", "launch",
-                             "ranks"))
+                             "ranks", "partition"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch

@@ -244,6 +244,7 @@ class AnnIndex:
         with a ``.base`` attribute such as a dataset) on ``device`` (default
         CUDA).  For ``metric="cosine"`` the base vectors are unit-normalized
         and stored normalized; queries are normalized at search time."""
+        rank_mod.refuse_counting("AnnIndex.build")
         if not isinstance(data, (np.ndarray, torch.Tensor)) \
                 and getattr(data, "base", None) is not None:
             data = data.base
@@ -589,6 +590,7 @@ class AnnIndex:
         index's device, cached per (params, mesh).  ``mesh`` is read by the
         "sharded" algorithm only (None: :func:`default_search_mesh`); its
         positions must sit on the index's device."""
+        rank_mod.refuse_counting("AnnIndex.searcher")
         key = (params, id(mesh) if mesh is not None else None)
         cached = self._searcher_cache.get(key)
         if cached is not None:

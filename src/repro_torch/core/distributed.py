@@ -165,8 +165,40 @@ def make_search_mesh(shape, names=("data", "model"), device=None,
     if device is not None and torch.device(device) not in (
             dev, torch.device(dev.type)):
         raise ValueError(f"this rank's device is {dev}, not {device}")
-    dmesh = init_device_mesh(dev.type, ranks, mesh_dim_names=names)
+    # the counting group's rank holds meta tensors over a CPU mesh (a
+    # CUDA mesh needs CUDA for DTensor's shape propagation)
+    dmesh = init_device_mesh("cpu" if dev.type == "meta" else dev.type,
+                             ranks, mesh_dim_names=names)
+    if dmesh.device_type == "cpu":
+        _shard_moves_as_all_to_all()
     return SearchMesh(names, shape, dev, ranks, dmesh)
+
+
+def _shard_moves_as_all_to_all() -> None:
+    """Have DTensor send a move of a split from one dim to another over a
+    CPU mesh axis as the one all-to-all (``_dtensor.shard_dim_alltoall``)
+    it sends on a CUDA mesh, where it would gather the whole tensor and
+    keep a chunk: gloo has the all-to-all, and the dry run's counting
+    group stands for NCCL ranks, so its record is the cards'.  Once a
+    process; raises when this torch lacks either piece."""
+    from torch.distributed.tensor import placement_types
+    own = getattr(placement_types, "shard_dim_alltoall", None)
+    if getattr(own, "all_to_all_on_cpu", False):
+        return
+    op = getattr(torch.ops._dtensor, "shard_dim_alltoall", None)
+    if own is None or op is None:
+        raise RuntimeError(
+            f"torch {torch.__version__} lacks DTensor's shard_dim_alltoall, "
+            "through which a mesh over ranks on the CPU sends its moves "
+            "from one split dim to another")
+
+    def move(t, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu":
+            return own(t, gather_dim, shard_dim, mesh, mesh_dim)
+        return op(t, gather_dim, shard_dim,
+                  mesh.get_group(mesh_dim).group_name)
+    move.all_to_all_on_cpu = True
+    placement_types.shard_dim_alltoall = move
 
 
 def check_mesh_device(mesh: SearchMesh, device: torch.device) -> None:

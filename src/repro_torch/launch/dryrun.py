@@ -20,15 +20,29 @@ there is nothing to extrapolate.
 
 Meshes: ``1xh100`` is the whole cell on one card: ``memory`` holds the
 argument bytes (parameters or train state, caches, batch), the peak (the
-arguments plus the counter's live peak) and ``fits`` (peak <= 80 GB).
-``16x16`` and ``2x16x16`` are the reference's production meshes (lanes of
-the meta device, ``launch.mesh.make_production_mesh``): the argument bytes
-one card holds under ``sharding.param_specs`` (DEFAULT_RULES) and the
-batch under ``ACT_RULES``; the peak is null there.  No partitioner exists
-(ROADMAP.md §1 item 8), so on every mesh ``t_collective_s`` is null and
-``dominant`` is chosen from compute and memory; FLOPs and bytes are the
-whole cell's, and the terms divide them over the mesh's cards, as the
-reference's do.
+arguments plus the counter's live peak) and ``fits`` (peak <= 80 GB);
+no collective is counted.  ``16x16`` and ``2x16x16`` are the reference's
+production meshes (``launch.mesh.make_production_mesh``).
+
+The partitioner (the ``CausalLM`` families: dense, moe, vlm): the cell
+runs as rank 0 of a counting group of 256 or 512 ranks
+(``ranks.init_counting_ranks``, torch's ``fake`` backend, which moves no
+data), in a spawned process a mesh.  The arguments are DTensors on the
+meta device, placed by ``sharding.spec_for_path`` (DEFAULT_RULES; the
+batch by ACT_RULES), and DTensor's sharding propagation, with the
+reference's constraint points (``sharding.shard``), inserts the
+collectives, as XLA's partitioner compiles one device's SPMD module.
+``resolve_spec`` drops the axes that do not divide, so every rank's
+shapes are rank 0's.  The counter records that one rank's ops and
+collectives: FLOPs by dtype, bytes and ``collectives`` (kind -> result
+bytes, ``roofline.collective_bytes``) are one card's times ``chips`` (the
+reference's module-global convention), so the terms divide them back;
+``memory`` holds the local shards' bytes and the peak (those plus the
+rank's live peak), and ``fits``.
+
+The other families (ssm, hybrid, encdec) keep the count divided over the
+mesh: the bytes one card holds under ``param_specs`` and ``ACT_RULES``,
+no peak, no collective (``reason`` names the next slice).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -38,32 +52,38 @@ Usage:
         --mesh 1xh100 --batch 1 --tag b1 --out /tmp/b1.json
 
 ``--batch`` cuts every cell's global batch (with ``--tag``, the results
-sit beside the whole cells').  ``--all`` takes ~8 minutes on one CPU core
-(the train cells' traces, 16-96 s each, most of it).
+sit beside the whole cells').  ``--all`` runs the two partitioned meshes'
+workers beside the main process's one-card traces.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import multiprocessing
 import os
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 from typing import Dict, Optional
 
 import torch
 
-from repro_torch.config import (FAMILY_ENCDEC, FAMILY_VLM, SHAPES_BY_NAME,
-                                ModelConfig, ShapeConfig, TrainConfig)
+from repro_torch import ranks
+from repro_torch.config import (FAMILY_DENSE, FAMILY_ENCDEC, FAMILY_MOE,
+                                FAMILY_VLM, SHAPES_BY_NAME, ModelConfig,
+                                ShapeConfig, TrainConfig)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.shapes import cell_matrix
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.op_profile import OpCounter
 from repro_torch.models import build_model
-from repro_torch.sharding import (ACT_RULES, DEFAULT_RULES, resolve_spec,
-                                  spec_for_path, use_rules)
-from repro_torch.treepath import flatten_with_path, keystr_simple
+from repro_torch.sharding import (ACT_RULES, DEFAULT_RULES, RankSharding,
+                                  _placements, place, resolve_spec,
+                                  sharding_for, spec_for_path, use_rules)
+from repro_torch.treepath import (flatten_with_path, keystr_simple, tree_map,
+                                  tree_map_with_path)
 
 RESULTS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "../../../torch_dryrun_results.json")
@@ -73,9 +93,16 @@ MESHES = {"1xh100": (1, None), "16x16": (256, False),
           "2x16x16": (512, True)}
 # the reference's mesh names
 MESH_ALIASES = {"single": "16x16", "multi": "2x16x16"}
-NO_PARTITIONER = ("no partitioner: collectives are not counted and nothing "
-                  "is split across cards (ROADMAP.md §1 item 8, the dry "
-                  "run's partitioner)")
+NO_PARTITIONER = ("no partitioner for this family: collectives are not "
+                  "counted and the count is divided over the mesh (ROADMAP.md "
+                  "§1 item 8, the next slice: the ssm, hybrid and encdec "
+                  "cells under the partitioner)")
+# the one-card mesh's reason, as before the partitioner
+ONE_CARD = ("no partitioner: collectives are not counted and nothing "
+            "is split across cards (ROADMAP.md §1 item 8, the dry "
+            "run's partitioner)")
+# the families the partitioner runs (CausalLM)
+PARTITIONED = (FAMILY_DENSE, FAMILY_MOE, FAMILY_VLM)
 
 # logical axes of the batch inputs (the reference's batch_specs)
 BATCH_LOGICAL = {
@@ -211,12 +238,43 @@ def _outputs_bytes(out, args) -> int:
     return sum(n for k, n in _storages(out).items() if k not in held)
 
 
+def place_arguments(args: Dict, mesh) -> Dict:
+    """``args`` as DTensors on ``mesh`` (a mesh over ranks): each leaf of
+    the state (``params``, ``state``, ``dstate``) placed by its path
+    (``sharding.sharding_for``, DEFAULT_RULES), each batch input by
+    ``ACT_RULES``, as :func:`per_card_bytes` counts them."""
+    out = {}
+    for k, tree in args.items():
+        if k == "batch":
+            def one(path, t):
+                spec = resolve_spec(tuple(t.shape), BATCH_LOGICAL[path[0]],
+                                    mesh, ACT_RULES)
+                return place(t, RankSharding(
+                    mesh.device_mesh, _placements(spec, mesh.axis_names),
+                    spec, mesh.device))
+        else:
+            def one(path, t):
+                return place(t, sharding_for(keystr_simple(path),
+                                             tuple(t.shape), mesh,
+                                             DEFAULT_RULES))
+        out[k] = tree_map_with_path(one, tree)
+    return out
+
+
+def local_bytes(tree) -> int:
+    """Bytes of the distinct storages this rank holds of ``tree`` (a
+    DTensor's local shard)."""
+    from repro_torch.sharding import is_dtensor
+    return tree_bytes(tree_map(lambda t: t.to_local() if is_dtensor(t)
+                               else t, tree))
+
+
 def trace(model, cfg: ModelConfig, shape: ShapeConfig, tcfg: TrainConfig,
           args: Dict, mesh=None) -> Dict:
     """Run the cell's step on ``args`` under an :class:`OpCounter` (inside
-    ``use_rules(DEFAULT_RULES, mesh)`` when a mesh is given, for
-    ``moe_a2a``'s lanes).  Returns the counter, the step's output and the
-    seconds it took."""
+    ``use_rules(DEFAULT_RULES, mesh)`` when a mesh is given: ``moe_a2a``'s
+    lanes, or the partitioner's mesh over ranks).  Returns the counter,
+    the step's output and the seconds it took."""
     step = cell_step(model, cfg, shape, tcfg)
     t0 = time.perf_counter()
     with use_rules(DEFAULT_RULES, mesh), OpCounter() as counter:
@@ -241,23 +299,39 @@ def trace_cell(arch: str, shape_name: str, mesh_kind: str = "1xh100",
     shape = SHAPES_BY_NAME[shape_name]
     mesh_kind = MESH_ALIASES.get(mesh_kind, mesh_kind)
     chips, multi = MESHES[mesh_kind]
-    mesh = (make_production_mesh(multi_pod=multi, device="meta")
+    split = partitioned(cfg, mesh_kind)
+    if split and not (ranks.counting() and ranks.world() == chips):
+        raise RuntimeError(
+            f"the {mesh_kind} partitioner traces rank 0 of a counting group "
+            f"of {chips} ranks (ranks.init_counting_ranks({chips})) in a "
+            "process of its own: main() spawns it")
+    mesh = (make_production_mesh(multi_pod=multi, device="meta",
+                                 ranks=split)
             if multi is not None else None)
     tcfg = train_config_for(cfg)
     if microbatches:
         tcfg = dataclasses.replace(tcfg, microbatches=microbatches)
     model = build_model(cfg, device="meta")
     args = cell_arguments(model, cfg, shape, tcfg, batch)
+    if split:
+        args = place_arguments(args, mesh)
     before = moe_a2a.moe_impl()
     moe_a2a.set_moe_impl(moe_impl)
     try:
         res = trace(model, cfg, shape, tcfg, args,
-                    mesh if moe_impl == "a2a" else None)
+                    mesh if moe_impl == "a2a" or split else None)
     finally:
         moe_a2a.set_moe_impl(before)
     res.update(cfg=cfg, shape=shape, tcfg=tcfg, args=args, mesh=mesh,
-               mesh_kind=mesh_kind, chips=chips, arch=arch)
+               mesh_kind=mesh_kind, chips=chips, arch=arch,
+               partitioned=split)
     return res
+
+
+def partitioned(cfg: ModelConfig, mesh_kind: str) -> bool:
+    """Whether the partitioner runs ``cfg``'s cells on ``mesh_kind``."""
+    return (MESHES[MESH_ALIASES.get(mesh_kind, mesh_kind)][1] is not None
+            and cfg.family in PARTITIONED)
 
 
 def trace_facts(arch: str, shape_name: str, record: bool = False,
@@ -278,10 +352,25 @@ def analyze(res: Dict) -> Dict:
     ``trace_s``; no ``scan_hlo_flops`` or ``extrapolation``)."""
     counter, chips = res["counter"], res["chips"]
     fby = counter.flops_by_dtype()
-    flops = float(sum(fby.values()))
     nbytes = float(counter.bytes())
     args = res["args"]
-    if res["mesh"] is None:
+    coll = None
+    reason = ONE_CARD if res["mesh"] is None else NO_PARTITIONER
+    if res.get("partitioned"):     # one card's counts, times the cards
+        fby = {k: v * chips for k, v in fby.items()}
+        nbytes *= chips
+        coll = {k: v * chips for k, v in
+                rl.collective_bytes(counter.record).items()}
+        arg_bytes = local_bytes(args)
+        peak = arg_bytes + counter.peak_bytes
+        memory = {"argument_bytes": arg_bytes,
+                  "output_bytes": _outputs_bytes(
+                      tree_map(_local, res["out"]), tree_map(_local, args)),
+                  "trace_peak_bytes": counter.peak_bytes,
+                  "peak_bytes": peak}
+        fits = peak <= rl.HBM_BYTES
+        reason = None
+    elif res["mesh"] is None:
         arg_bytes = tree_bytes(args)
         peak = arg_bytes + counter.peak_bytes
         memory = {"argument_bytes": arg_bytes,
@@ -294,18 +383,24 @@ def analyze(res: Dict) -> Dict:
                   "output_bytes": None, "trace_peak_bytes": None,
                   "peak_bytes": None}
         fits = None
-    terms = rl.roofline_terms(fby, nbytes, None, chips)
+    flops = float(sum(fby.values()))
+    terms = rl.roofline_terms(fby, nbytes, coll, chips)
     mf = rl.model_flops(res["cfg"], res["shape"])
     return {
         "arch": res["arch"], "shape": res["shape"].name,
         "mesh": res["mesh_kind"], "chips": chips,
         "trace_s": res["trace_s"], "ops": len(counter.record),
         "flops": flops, "flops_by_dtype": fby, "bytes": nbytes,
-        "collectives": None, "memory": memory, "fits": fits,
+        "collectives": coll, "memory": memory, "fits": fits,
         "model_flops": mf,
         "useful_flops_ratio": (mf / flops) if flops else None,
-        "reason": NO_PARTITIONER, **terms,
+        "reason": reason, **terms,
     }
+
+
+def _local(t):
+    from repro_torch.sharding import is_dtensor
+    return t.to_local() if is_dtensor(t) else t
 
 
 def load_results(path: str = RESULTS_PATH) -> Dict:
@@ -320,9 +415,70 @@ def save_results(res: Dict, path: str = RESULTS_PATH) -> None:
         json.dump(res, f, indent=1, sort_keys=True)
 
 
+def record_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                generator: Optional[torch.Generator] = None):
+    """(the op record's keys, the argument bytes this rank holds) of the
+    cell's step on ``mesh`` (a mesh over ranks, on its device), its
+    arguments placed as the partitioner places them (weights drawn from
+    ``generator``; none on ``meta``)."""
+    model = build_model(cfg, device=mesh.device)
+    tcfg = train_config_for(cfg)
+    args = place_arguments(cell_arguments(model, cfg, shape, tcfg,
+                                          generator=generator), mesh)
+    res = trace(model, cfg, shape, tcfg, args, mesh)
+    return [e.key() for e in res["counter"].record], local_bytes(args)
+
+
+_POOLS: Dict[int, ProcessPoolExecutor] = {}
+
+
+def _join_counting(world: int) -> None:
+    torch.set_num_threads(1)
+    ranks.init_counting_ranks(world)
+
+
+def _partition_task(arch: str, shape_name: str, mesh_kind: str,
+                    kw: Dict) -> Dict:
+    return analyze(trace_cell(arch, shape_name, mesh_kind, **kw))
+
+
+def record_task(cfg: ModelConfig, shape: ShapeConfig, mesh_shape) -> tuple:
+    """:func:`record_cell` as rank 0 of the worker's counting group, on a
+    ("data", "model") mesh of ``mesh_shape`` over its ranks."""
+    from repro_torch.core.distributed import make_search_mesh
+    mesh = make_search_mesh(mesh_shape, ("data", "model"), device="meta",
+                            ranks=mesh_shape)
+    return record_cell(cfg, shape, mesh)
+
+
+def counting_worker(world: int) -> ProcessPoolExecutor:
+    """A spawned process that is rank 0 of a counting group of ``world``
+    ranks (a process holds one default group), for :func:`_partition_task`
+    and :func:`record_task`; kept until :func:`close_workers`."""
+    if world not in _POOLS:
+        _POOLS[world] = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_join_counting, initargs=(world,))
+    return _POOLS[world]
+
+
+def partition_worker(mesh_kind: str) -> ProcessPoolExecutor:
+    """The counting worker that traces ``mesh_kind``'s partitioned
+    cells."""
+    return counting_worker(MESHES[MESH_ALIASES.get(mesh_kind,
+                                                   mesh_kind)][0])
+
+
+def close_workers() -> None:
+    for pool in _POOLS.values():
+        pool.shutdown()
+    _POOLS.clear()
+
+
 def run_cell(arch: str, shape_name: str, meshes, res: Dict, path: str,
              force: bool = False, tag: str = "", **kw) -> int:
-    """Trace one cell once and record it on each of ``meshes``; returns
+    """Trace one cell once and record it on each of ``meshes`` (the
+    partitioned meshes' traces run in their workers meanwhile); returns
     how many meshes failed."""
     todo = [m for m in meshes
             if force or res.get(f"{arch}|{shape_name}|{m}"
@@ -331,19 +487,27 @@ def run_cell(arch: str, shape_name: str, meshes, res: Dict, path: str,
     for m in meshes:
         if m not in todo:
             print(f"[skip cached] {arch}|{shape_name}|{m}")
+    cfg = (get_smoke_config if kw.get("smoke") else get_config)(arch)
+    futures = {m: partition_worker(m).submit(_partition_task, arch,
+                                             shape_name, m, kw)
+               for m in todo if partitioned(cfg, m)}
     base = None
     fails = 0
     for m in todo:
         key = f"{arch}|{shape_name}|{m}" + (f"#{tag}" if tag else "")
         t0 = time.perf_counter()
         try:
-            if base is None or kw.get("moe_impl") == "a2a":
-                base = trace_cell(arch, shape_name, m, **kw)
-            cell = dict(base, mesh_kind=m, chips=MESHES[m][0],
-                        mesh=(make_production_mesh(multi_pod=MESHES[m][1],
-                                                   device="meta")
-                              if MESHES[m][1] is not None else None))
-            out = analyze(cell)
+            if m in futures:
+                out = futures[m].result()
+            else:
+                if base is None or kw.get("moe_impl") == "a2a":
+                    base = trace_cell(arch, shape_name, m, **kw)
+                cell = dict(base, mesh_kind=m, chips=MESHES[m][0],
+                            mesh=(make_production_mesh(
+                                multi_pod=MESHES[m][1], device="meta",
+                                ranks=False)
+                                  if MESHES[m][1] is not None else None))
+                out = analyze(cell)
             out["status"] = "ok"
             res[key] = out
             print(f"[ok] {key}  trace={out['trace_s']:.1f}s "
@@ -353,6 +517,9 @@ def run_cell(arch: str, shape_name: str, meshes, res: Dict, path: str,
                   + (f" peak={out['memory']['peak_bytes'] / 1e9:.2f}GB "
                      f"fits={out['fits']}" if out["fits"] is not None
                      else "")
+                  + (" wire/card={:.3f}GB".format(
+                      out["collective_wire_bytes"] / MESHES[m][0] / 1e9)
+                     if out["collective_wire_bytes"] is not None else "")
                   + f"  ({time.perf_counter() - t0:.1f}s)")
         except Exception as e:  # noqa: BLE001 — record the failure
             res[key] = {"status": "fail",
@@ -412,6 +579,7 @@ def main(argv=None) -> int:
                          batch=args.batch, moe_impl=args.moe_impl)
         n_fail += fails
         n_ok += len(meshes) - fails
+    close_workers()
     print(f"\ndry-run complete: {n_ok} ok, {n_fail} failed in "
           f"{time.perf_counter() - t0:.0f} s "
           f"(results -> {os.path.abspath(args.out)})")

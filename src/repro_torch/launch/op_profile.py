@@ -24,7 +24,8 @@ Conventions (a lower bound a kernel of this op cannot beat):
   scatter writes only as many elements as its source holds; a gather
   (``index``, ``index_select``, ``gather``, ``embedding``) reads the
   elements it returns and its indices, not its whole source; an
-  allocation (``empty*``) writes nothing.
+  allocation (``empty*``) writes nothing, and ``zeros_like`` reads
+  nothing of its operand.
 
 Live bytes follow storages, not tensors: a storage first made as an op's
 result counts from then until it is freed, however many views hold it,
@@ -33,6 +34,18 @@ is kept alive with it; a ``weakref.finalize`` on it fires at the free).
 Storages made before the counter started (arguments) are not counted:
 callers add them (``launch.dryrun``).  Torch's own memory trackers are
 not used: they are private and move between torch releases.
+
+Over ranks (DTensors, the dry run's partitioner) the counter records
+what one rank runs: each rank-local op on its local tensors, and each
+collective DTensor issues (``_c10d_functional.*``, or ``c10d.*`` from
+code that calls ``torch.distributed`` itself; ``_dtensor.shard_dim_alltoall``
+for a shard move), once.  The DTensor-level
+op at global shapes is passed on to DTensor unrecorded, and so are a
+functional collective's wait and autograd wrap, and every op DTensor
+runs to propagate shardings (on fake tensors, and on small index
+tensors for shard offsets): it runs once per distinct op and is then
+cached, so a second trace in one process would not run it
+(:func:`_quiet_propagation`).
 
 The port's CUDA kernel wrappers do not dispatch an aten op for their
 launch; each reports its own operands, bytes and FLOPs to the active
@@ -57,6 +70,11 @@ from torch.utils._python_dispatch import TorchDispatchMode
 # the counter inside whose block the current code runs, else None
 ACTIVE: Optional["OpCounter"] = None
 
+try:
+    from torch.distributed.tensor import DTensor as _DTENSOR
+except ImportError:      # a torch without distributed support
+    _DTENSOR = None
+
 _DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
           torch.float64: "f64", torch.int8: "int8", torch.uint8: "u8",
           torch.int16: "s16", torch.int32: "s32", torch.int64: "s64",
@@ -69,12 +87,59 @@ _OVERWRITE = {"copy_", "fill_", "zero_", "index_put_", "_index_put_impl_",
               "copy", "fill"}
 _ALLOC = {"empty", "empty_strided", "empty_like", "new_empty",
           "new_empty_strided"}
+# a fill that reads no element of its operand (its shape, dtype and device
+# alone); the gradient buffers' (train_step._zeros)
+_LIKE = {"zeros_like"}
 # gathers read the rows they return (and their indices), not the source
 _GATHER = {"index", "_unsafe_index", "index_select", "gather", "embedding",
            "take"}
 # in-place scatters write as many elements as their last operand holds
 _SCATTER = {"index_put_", "_index_put_impl_", "scatter_", "scatter_add_",
             "index_add_", "index_copy_", "masked_scatter_"}
+
+# depth of DTensor sharding propagation on this thread (see
+# _quiet_propagation)
+_QUIET = threading.local()
+
+
+def _quiet_propagation() -> None:
+    """Mark DTensor's sharding propagation (its two entry points on the
+    dispatcher's propagator, wrapped once a process, when a counter first
+    meets a DTensor op) so that a counter records none of the ops it runs:
+    they are not the rank's work, and they run only on a cache miss.
+    Raises when this torch's dispatcher lacks either entry point."""
+    dispatcher = getattr(_DTENSOR, "_op_dispatcher", None)
+    if getattr(dispatcher, "_counter_quiet", False):
+        return
+    prop = getattr(dispatcher, "sharding_propagator", None)
+    if not (callable(getattr(dispatcher,
+                             "_propagate_op_sharding_dispatch_slow_path",
+                             None))
+            and callable(getattr(prop, "propagate", None))):
+        raise RuntimeError(
+            f"OpCounter cannot keep DTensor's sharding propagation out of "
+            f"its record on torch {torch.__version__}: the dispatcher has "
+            "no _propagate_op_sharding_dispatch_slow_path or "
+            "sharding_propagator.propagate")
+
+    def quiet(fn):
+        def run(*args, **kwargs):
+            depth = getattr(_QUIET, "depth", 0)
+            _QUIET.depth = depth + 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _QUIET.depth = depth
+        return run
+    dispatcher._propagate_op_sharding_dispatch_slow_path = quiet(
+        dispatcher._propagate_op_sharding_dispatch_slow_path)
+    prop.propagate = quiet(prop.propagate)
+    dispatcher._counter_quiet = True
+
+
+# a functional collective's wait and autograd wrap: no work of the rank's
+_BOOKKEEPING = {"_c10d_functional.wait_tensor.default",
+                "_c10d_functional._wrap_tensor_autograd.default"}
 
 Shape = Tuple[torch.Size, torch.dtype]
 
@@ -139,6 +204,8 @@ class _Op(NamedTuple):
     alloc: bool
     gather: bool
     scatter: bool
+    c10d: bool         # a torch.distributed collective (writes its first
+                       # operand when it returns no tensor)
 
 
 _OPS: Dict[object, _Op] = {}
@@ -148,12 +215,14 @@ def _op(func) -> _Op:
     info = _OPS.get(func)
     if info is None:
         op = func._schema.name.split("::")[-1]
+        c10d = str(func).startswith("c10d.")
         info = _OPS[func] = _Op(
             str(func), op, func.is_view,
-            any(a.alias_info is not None and a.alias_info.is_write
-                for a in func._schema.arguments),
-            1 if op in _OVERWRITE or op in _SCATTER else 0, op in _ALLOC,
-            op in _GATHER, op in _SCATTER)
+            c10d or any(a.alias_info is not None and a.alias_info.is_write
+                        for a in func._schema.arguments),
+            1 if op in _OVERWRITE or op in _SCATTER or op in _LIKE else 0,
+            op in _ALLOC,
+            op in _GATHER, op in _SCATTER, c10d)
     return info
 
 
@@ -210,14 +279,26 @@ class OpCounter(TorchDispatchMode):
                                        self.live))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if getattr(_QUIET, "depth", 0):     # sharding propagation
+            return func(*args, **(kwargs or {}))
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
+                                        for t in types):
+            # DTensor runs the rank's local ops (and collectives), which
+            # come back here on plain tensors
+            _quiet_propagation()
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
         info = _op(func)
+        if info.name in _BOOKKEEPING:
+            return out
         ins = _tensors(args, [])
         if kwargs:
             _tensors(kwargs.values(), ins)
         outs = ([out] if isinstance(out, torch.Tensor)
                 else _tensors(out, []) if isinstance(out, (list, tuple))
                 else [])
+        if info.c10d and not outs:     # it wrote its output operand
+            outs = _tensors(args[:1], [])
         if info.view:
             self._append(info.name, ins, outs, 0, None, 0, 0)
             return out

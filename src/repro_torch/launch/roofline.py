@@ -49,8 +49,18 @@ _C10D = {
     "reduce_scatter_tensor": "reduce-scatter",
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
     "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",       # _dtensor's, a shard move
     "send": "collective-permute", "recv_": "collective-permute",
 }
+
+
+def collective_kind(name: str) -> Optional[str]:
+    """The collective an op of a record is (``c10d.allreduce_.default``
+    -> "all-reduce"), or None."""
+    space, _, rest = name.partition(".")
+    if space not in ("c10d", "_c10d_functional", "_dtensor"):
+        return None
+    return _C10D.get(rest.split(".")[0])
 
 
 def collective_bytes(record) -> Dict[str, int]:
@@ -61,9 +71,7 @@ def collective_bytes(record) -> Dict[str, int]:
     item 8)."""
     out = {c: 0 for c in COLLECTIVES}
     for e in record:
-        space, _, rest = e.name.partition(".")
-        kind = (_C10D.get(rest.split(".")[0])
-                if space in ("c10d", "_c10d_functional") else None)
+        kind = collective_kind(e.name)
         if kind is not None:
             out[kind] += e.bytes_written or e.bytes_read
     return out

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.sharding import arange_like, replicated, sharded_dim
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -51,10 +52,27 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Mean masked token cross-entropy, f32 accumulation."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    if sharded_dim(lf, -1):
+        logz, gold = _vocab_parallel(lf, targets)
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
     nll = (logz - gold) * mask
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _vocab_parallel(lf: torch.Tensor, targets: torch.Tensor):
+    """logsumexp and the target's logit of f32 logits whose vocab dim is
+    split over ranks (a DTensor), each as partial results over the rank's
+    block of the vocab and one reduction: the max, then the sum of exp,
+    and the target's logit where the block holds it.  DTensor's own
+    ``logsumexp`` would gather the logits whole, and its ``gather`` on a
+    split dim breaks on a 3-D index."""
+    top = lf.detach().amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.sum(torch.exp(lf - top), dim=-1)) + top[..., 0]
+    hit = targets.long()[..., None] == arange_like(lf, -1)
+    gold = torch.sum(torch.where(hit, lf, 0.0), dim=-1)
+    return logz, gold
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +125,7 @@ def _inv_freq(head_dim: int, theta: float, device) -> torch.Tensor:
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (..., S) -> cos/sin (..., S, head_dim/2) in f32."""
-    inv = _inv_freq(head_dim, theta, positions.device)
+    inv = replicated(_inv_freq(head_dim, theta, positions.device), positions)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -124,11 +142,13 @@ def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} do not sum to "
                          f"head_dim/2 = {half}")
-    inv = _inv_freq(head_dim, theta, positions.device)
+    inv = replicated(_inv_freq(head_dim, theta, positions.device), positions)
     sec_id = torch.cat([torch.full((s,), i, dtype=torch.long,
                                    device=positions.device)
                         for i, s in enumerate(sections)])
-    pos_sel = positions.float()[sec_id]                      # (half, B, S)
+    # (half, B, S); index_select, as DTensor has no rule for aten.index
+    pos_sel = torch.index_select(positions.float(), 0,
+                                 replicated(sec_id, positions))
     pos_sel = torch.movedim(pos_sel, 0, -1)                  # (B, S, half)
     ang = pos_sel * inv
     return torch.cos(ang), torch.sin(ang)

@@ -2,7 +2,9 @@
 
 Port of ``repro.models.mlp``.  The activation runs in f32 and is cast to
 the compute dtype before the gate product, which stays in that dtype, as
-in the reference."""
+in the reference.  The reference's ``shard(...)`` constraints stand where
+it has them (``sharding.shard``: the identity but on DTensors over
+ranks)."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.common import normal_init
+from repro_torch.sharding import shard
 
 
 def swiglu_init(generator: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -25,8 +28,8 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     g = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
-    h = F.silu(g.float()).to(dt) * u
-    return h @ p["w_down"].to(dt)
+    h = shard(F.silu(g.float()).to(dt) * u, "batch", "seq", "mlp")
+    return shard(h @ p["w_down"].to(dt), "batch", "seq", "embed")
 
 
 def gelu_mlp_init(generator: torch.Generator, cfg: ModelConfig, d_in=None,
@@ -47,5 +50,7 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     h = x @ p["fc1"].to(dt) + p["fc1_b"].to(dt)
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return h @ p["fc2"].to(dt) + p["fc2_b"].to(dt)
+    h = shard(F.gelu(h.float(), approximate="tanh").to(dt),
+              "batch", "seq", "mlp")
+    return shard(h @ p["fc2"].to(dt) + p["fc2_b"].to(dt),
+                 "batch", "seq", "embed")

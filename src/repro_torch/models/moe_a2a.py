@@ -62,10 +62,11 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.distributed import check_mesh_device
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.moe import (combine, dispatch, expert_counts,
-                                    rank_within, route, swiglu_experts)
+from repro_torch.models.moe import (combine, dispatch, one_hot, rank_within,
+                                    route, swiglu_experts)
 from repro_torch.ranks import RankAxis
-from repro_torch.sharding import _active_mesh
+from repro_torch.sharding import (_active_mesh, is_dtensor, like,
+                                  replicated, shard)
 
 # set by set_moe_impl to route the transformer's MoE layers through
 # moe_ffn_whole
@@ -303,27 +304,47 @@ class Layout(NamedTuple):
         return self.data + ((self.model,) if a2a else ())
 
 
-def _aux(cfg: ModelConfig, me, ce, axes: Tuple[Lanes, ...]) -> torch.Tensor:
+def _aux(cfg: ModelConfig, me, ce, n, axes: Tuple[Lanes, ...]
+         ) -> torch.Tensor:
     """The aux loss over the global batch from this rank's lanes' ``me``
-    and ``ce`` (l, E): each gathered in lane order and averaged over every
-    lane (the reference's ``pmean``), then their product."""
+    and ``ce`` (l, E), their sums over their tokens, and ``n`` (l,), their
+    counts of tokens: each gathered in lane order and summed, over the
+    gathered count (the reference's ``pmean`` of the lanes' means, whose
+    counts are equal there; a padded lane holds fewer), then their
+    product."""
     m = cfg.moe
-    me, ce = gather(me, axes).mean(0), gather(ce, axes).mean(0)
+    total = gather(n, axes).sum()
+    me = gather(me, axes).sum(0) / total
+    ce = gather(ce, axes).sum(0) / total
     return m.aux_loss_weight * m.num_experts * torch.sum(me * ce)
 
 
-def _a2a_send(x, router, cfg: ModelConfig, n_dev: int, cap_s: int):
+def _route_sums(probs, top_e, e: int, w) -> Tuple[torch.Tensor, ...]:
+    """The aux loss's sums over a lane's tokens, each weighted by ``w``
+    (t,) (0 for padding): the router probabilities, and each expert's
+    share of a token's k slots."""
+    w = w.to(torch.float32)[:, None]
+    return ((probs * w).sum(0),
+            (one_hot(top_e, e, torch.float32).sum(-2) * w).sum(0))
+
+
+def _a2a_send(x, router, cfg: ModelConfig, n_dev: int, cap_s: int, real):
     """One lane of the a2a body up to the exchange: x (t, d) routed,
-    bucketed by destination position.  Returns (send_x (n_dev, cap_s, d),
-    send_eid (n_dev, cap_s), the slots for the combine, me, ce)."""
+    bucketed by destination position.  ``real`` (t,) bool marks the rows
+    that are tokens; a padding row goes to no position, takes no slot and
+    adds nothing to ``me`` or ``ce``.  Returns (send_x (n_dev, cap_s, d),
+    send_eid (n_dev, cap_s), the slots for the combine, me, ce: sums over
+    the tokens)."""
     m = cfg.moe
     t, d = x.shape
     k, e_local = m.top_k, m.num_experts // n_dev
     probs, top_p, top_e = route(x, router, k)
     flat_e = top_e.reshape(t * k)
-    dst = flat_e // e_local                          # (T*k,) in [0, M)
-    send_pos = rank_within(dst, n_dev)
-    keep = send_pos < cap_s
+    slot_real = real[:, None].expand(t, k).reshape(t * k)
+    # (T*k,) in [0, M); padding fills a bucket past the last position
+    dst = torch.where(slot_real, flat_e // e_local, n_dev)
+    send_pos = rank_within(dst, n_dev + 1)
+    keep = slot_real & (send_pos < cap_s)
     send_pos_c = torch.where(keep, send_pos, 0)
     dst_c = torch.where(keep, dst, 0)
     rows = x[:, None].expand(t, k, d).reshape(t * k, d)
@@ -334,8 +355,8 @@ def _a2a_send(x, router, cfg: ModelConfig, n_dev: int, cap_s: int):
                           device=x.device).scatter_reduce(
         0, dst_c * cap_s + send_pos_c, eid, "amax")
     slots = (dst_c, send_pos_c, keep, top_p.reshape(t * k))
-    return (send_x, send_eid.reshape(n_dev, cap_s), slots, probs.mean(0),
-            expert_counts(top_e, m.num_experts))
+    return (send_x, send_eid.reshape(n_dev, cap_s), slots,
+            *_route_sums(probs, top_e, m.num_experts, real))
 
 
 def _a2a_experts(rx, re, wg, wu, wd, cap_e: int) -> torch.Tensor:
@@ -356,16 +377,17 @@ def _a2a_experts(rx, re, wg, wu, wd, cap_e: int) -> torch.Tensor:
                        torch.zeros((), dtype=y_e.dtype, device=rx.device))
 
 
-def moe_ffn_a2a_local(x: torch.Tensor, p, cfg: ModelConfig, mesh
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_a2a_local(x: torch.Tensor, p, cfg: ModelConfig, mesh,
+                      real=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The a2a body over this rank's lanes of ``mesh``.
 
     x: (G, w, T_local, d), the tokens of lane (g, j): G lanes of the data
     axes (row-major), w of the ``n_dev`` positions of ``model``; ``p``
     the router (d, E) and the expert stacks (E, d, f), (E, f, d), whole or
     placed (:func:`_gather_fsdp`): lane j runs the e_local experts of its
-    position.  Returns (y (G, w, T_local, d), aux ()): aux over every lane
-    of the mesh."""
+    position.  ``real`` (G, w, T_local) bool marks the rows that are
+    tokens (None: all; see :func:`_a2a_send`).  Returns (y (G, w, T_local,
+    d), aux ()): aux over every lane of the mesh."""
     m = cfg.moe
     G, w, t, d = x.shape
     layout = Layout.of(mesh)
@@ -377,11 +399,14 @@ def moe_ffn_a2a_local(x: torch.Tensor, p, cfg: ModelConfig, mesh
     tokens = layout.tokens(True)
     model = layout.model[0]
 
-    lanes = [_a2a_send(xi, ri, cfg, n_dev, cap_s) for xi, ri in
+    real = (torch.ones((G * w, t), dtype=torch.bool, device=x.device)
+            if real is None else real.reshape(G * w, t))
+    lanes = [_a2a_send(xi, ri, cfg, n_dev, cap_s, re) for xi, ri, re in
              zip(x.reshape(G * w, t, d),
-                 _gather_fsdp(p["router"], mesh, None, tokens))]
+                 _gather_fsdp(p["router"], mesh, None, tokens), real)]
     send_x, send_eid, slots, me, ce = zip(*lanes)
-    aux = _aux(cfg, torch.stack(me), torch.stack(ce), tokens)
+    aux = _aux(cfg, torch.stack(me), torch.stack(ce),
+               real.sum(-1).to(torch.float32), tokens)
 
     # ---- exchange: tokens travel to their experts' position ----
     recv_x = _Exchange.apply(torch.stack(send_x).reshape(
@@ -436,8 +461,9 @@ def moe_ffn_tp_local(x: torch.Tensor, p, cfg: ModelConfig, mesh
     for g, router in enumerate(_gather_fsdp(p["router"], mesh, None,
                                             layout.data)):
         probs, top_p, top_e = route(x[g], router, k)
-        me.append(probs.mean(0))
-        ce.append(expert_counts(top_e, e))
+        sums = _route_sums(probs, top_e, e, probs.new_ones(t))
+        me.append(sums[0])
+        ce.append(sums[1])
         flat_e = top_e.reshape(t * k)
         pos = rank_within(flat_e, e)
         keep = pos < cap
@@ -452,7 +478,8 @@ def moe_ffn_tp_local(x: torch.Tensor, p, cfg: ModelConfig, mesh
             parts.append(swiglu_experts(
                 dj, wgs[g][..., f].contiguous(), wus[g][..., f].contiguous(),
                 wds[g][:, f].contiguous()))
-    aux = _aux(cfg, torch.stack(me), torch.stack(ce), layout.data)
+    aux = _aux(cfg, torch.stack(me), torch.stack(ce),
+               torch.full((G,), float(t), device=x.device), layout.data)
 
     # psum over model: (w, G, ...) gathered to (n_dev, G, ...), added in
     # lane order
@@ -472,7 +499,7 @@ def _is_a2a(mesh, cfg: ModelConfig) -> bool:
     return msize > 1 and cfg.moe.num_experts % msize == 0
 
 
-def moe_ffn_sharded(p, x: torch.Tensor, cfg: ModelConfig
+def moe_ffn_sharded(p, x: torch.Tensor, cfg: ModelConfig, real=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in replacement for ``moe.moe_ffn`` over the active mesh's
     positions (``sharding.use_rules(rules, mesh)``); ``moe.moe_ffn`` when
@@ -482,8 +509,10 @@ def moe_ffn_sharded(p, x: torch.Tensor, cfg: ModelConfig
     along the token axes, row-major as the reference's in_spec
     ``P(token_axes, None)`` (every token on a lanes-only mesh; over ranks
     the positions of this rank's coordinates, the same block on each
-    ``model`` rank of the tp path).  Returns (y, the block's output, in
-    ``x``'s shape; aux, over the whole mesh)."""
+    ``model`` rank of the tp path).  ``real`` (x's rows,) bool, on the a2a
+    path only, marks the rows that are tokens; the others are padding,
+    which routes nowhere.  Returns (y, the block's output, in ``x``'s
+    shape; aux, over the whole mesh)."""
     mesh = _active_mesh.get()
     if mesh is None:
         return moe_mod.moe_ffn(p, x, cfg)
@@ -505,8 +534,9 @@ def moe_ffn_sharded(p, x: torch.Tensor, cfg: ModelConfig
         raise ValueError(f"d_ff {cfg.d_ff} does not split over the "
                          f"mesh's {msize} model positions")
     if a2a:
-        y, aux = moe_ffn_a2a_local(x.reshape(g, w, t // lanes, d), p, cfg,
-                                   mesh)
+        y, aux = moe_ffn_a2a_local(
+            x.reshape(g, w, t // lanes, d), p, cfg, mesh,
+            None if real is None else real.reshape(g, w, t // lanes))
     else:
         y, aux = moe_ffn_tp_local(x.reshape(g, t // lanes, d), p, cfg, mesh)
     return y.reshape(x.shape), aux
@@ -538,6 +568,49 @@ def token_block(x: torch.Tensor, cfg: ModelConfig, mesh=None
     return out.reshape(-1, d)
 
 
+def _moe_ffn_dtensor(p, x, cfg: ModelConfig, mesh):
+    """:func:`moe_ffn_whole` on the DTensor activations of the partitioned
+    model (x (B, S, d), its batch split over the data ranks): this rank's
+    rows are already its data positions' tokens, so its block is its
+    ``model`` coordinate's share of them (a2a; all of them for tp), with
+    no gather; the output is gathered over ``model`` alone and split over
+    the data ranks as x is.  Rows that do not split over the model ranks
+    (a decode step's few tokens a rank) are padded with zero rows (the
+    reference's shard_map refuses them), which route nowhere: they take
+    no capacity slot, add nothing to the aux loss, whose means are over
+    the tokens alone, and are dropped from the output."""
+    x = shard(x, "batch", "seq", "embed")
+    split = [n for n, pl in zip(mesh.axis_names, x.placements)
+             if pl.is_shard(0)]
+    if split != [a for a in ("pod", "data") if a in mesh.axis_names]:
+        raise ValueError(f"the partitioned moe layer needs the batch "
+                         f"({x.shape[0]}) split over every data axis of "
+                         f"the mesh {mesh.shape}")
+    local = x.to_local()
+    d = local.shape[-1]
+    rows = local.reshape(-1, d)
+    model, n, real = (), rows.shape[0], None
+    if _is_a2a(mesh, cfg):
+        axis = mesh.axis("model")
+        if mesh.lanes("model") != 1:
+            raise ValueError("the partitioned moe layer needs one rank a "
+                             "position of the mesh's model axis")
+        model = ((axis, 1),)
+        if n % axis.size:
+            rows = torch.cat([rows, rows.new_zeros(
+                (-n % axis.size, d))])
+            q = rows.shape[0] // axis.size
+            real = torch.arange(axis.coord * q, (axis.coord + 1) * q,
+                                device=rows.device) < n
+        # this rank's block; its backward gathers every block's gradient
+        rows = _Scatter.apply(rows.reshape(axis.size, -1, d),
+                              model).reshape(-1, d)
+    y, aux = moe_ffn_sharded(p, rows, cfg, real)
+    y = gather(y.reshape(1, -1, d), model).reshape(-1, d)[:n] if model \
+        else y
+    return like(y.reshape(local.shape), x), replicated(aux, x)
+
+
 def moe_ffn_whole(p, x: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`moe_ffn_sharded` on the whole ``x`` (..., d) that every rank
@@ -548,6 +621,8 @@ def moe_ffn_whole(p, x: torch.Tensor, cfg: ModelConfig
     mesh = _active_mesh.get()
     if mesh is None or not mesh.over_ranks:
         return moe_ffn_sharded(p, x, cfg)
+    if is_dtensor(x):
+        return _moe_ffn_dtensor(p, x, cfg, mesh)
     y, aux = moe_ffn_sharded(p, token_block(x, cfg, mesh), cfg)
     axes = token_axes(mesh, cfg)
     lanes = math.prod(n for _, n in axes)

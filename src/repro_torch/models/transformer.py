@@ -41,6 +41,8 @@ from repro_torch.models.common import (cross_entropy, dtype_of,
 from repro_torch.models.params import (TreeModel, check_stacked,
                                        draw_stacked, frozen, layer_list,
                                        params_tree)
+from repro_torch.sharding import (is_dtensor, like, replicated, shard,
+                                  unshard, vocab_lookup)
 
 
 class DecodeState(NamedTuple):
@@ -150,12 +152,17 @@ class CausalLM(TreeModel):
         return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params.embedding[tokens.long()].to(dtype_of(self.cfg))
+        if is_dtensor(params.embedding):
+            x = vocab_lookup(unshard(params.embedding, "pod", "data"),
+                             tokens)
+        else:
+            x = params.embedding[tokens.long()]
+        return shard(x.to(dtype_of(self.cfg)), "batch", "seq", "embed")
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         head = (params.embedding.T if self.cfg.tie_embeddings
                 else params.lm_head)
-        return x @ head.to(x.dtype)
+        return shard(x @ head.to(x.dtype), "batch", "seq", "vocab")
 
     def _layer_apply(self, p, x, rope, mode, cache, pos):
         cfg = self.cfg
@@ -176,8 +183,12 @@ class CausalLM(TreeModel):
 
     @staticmethod
     def _positions(tokens: torch.Tensor) -> torch.Tensor:
-        b, s = tokens.shape
-        return torch.arange(s, device=tokens.device)[None].expand(b, s)
+        """(B, S) positions 0..S-1, laid out as ``tokens`` (a DTensor's
+        own rows on each rank)."""
+        local = tokens.to_local() if is_dtensor(tokens) else tokens
+        b, s = local.shape
+        return like(torch.arange(s, device=local.device)[None].expand(b, s),
+                    tokens)
 
     def _train_layer(self, lp, x, rope):
         x, _, aux = self._layer_apply(lp, x, rope, "train", None, None)
@@ -257,7 +268,8 @@ class CausalLM(TreeModel):
         logits = self._logits(params, x[:, -1:, :])
         return logits, DecodeState(
             caches=attn.KVCache(k=torch.stack(ks), v=torch.stack(vs)),
-            pos=torch.full((b,), s, dtype=torch.int32, device=x.device))
+            pos=shard(replicated(torch.full((b,), s, dtype=torch.int32,
+                                            device=x.device), x), "batch"))
 
     def decode_step(self, params, state: DecodeState, token: torch.Tensor,
                     inplace: bool = False

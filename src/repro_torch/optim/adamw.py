@@ -13,7 +13,9 @@ Each update takes ``inplace``: the reference's result is written into
 step that owns them (at 3B parameters a second copy of the parameters
 and moments does not fit one card).  AdamW's arithmetic is elementwise,
 so it runs over row slices of each leaf there, to bound the temporaries;
-every element is computed as the functional update computes it.
+every element is computed as the functional update computes it.  On
+DTensor leaves (placed alike: gradients, moments and parameters) it runs
+on each rank's local blocks, which is exact and sends nothing.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.config import TrainConfig
 from repro_torch.models.common import _torch_dtype
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding import is_dtensor
 from repro_torch.treepath import tree_leaves, tree_map, tree_unzip
 
 _SLICE_ELEMS = 1 << 25       # elements an in-place AdamW slice holds
@@ -35,6 +38,14 @@ def _apply_inplace(upd, grads, moments, params, row_slices: bool) -> None:
     for g, *ms, p in zip(tree_leaves(grads),
                          *(tree_leaves(m) for m in moments),
                          tree_leaves(params)):
+        if is_dtensor(p):       # elementwise: each rank its own blocks
+            if not row_slices or any(t.placements != p.placements
+                                     for t in (g, *ms)):
+                raise ValueError(
+                    "over ranks the update runs on each rank's blocks: "
+                    "AdamW (Adafactor's clipping reads whole leaves), its "
+                    "gradients and moments placed as their parameters")
+            g, ms, p = g.to_local(), [m.to_local() for m in ms], p.to_local()
         slices = [slice(None)]
         if row_slices and p.dim():
             rows = max(1, _SLICE_ELEMS // max(1, p[0].numel()))
@@ -66,6 +77,8 @@ def adamw_update(grads, state: dict, params, tcfg: TrainConfig,
     mdt = _torch_dtype(tcfg.moment_dtype)
     c1 = 1 - b1 ** step.float()
     c2 = 1 - b2 ** step.float()
+    if inplace and is_dtensor(lr):     # the update runs on local blocks
+        lr, c1, c2 = lr.to_local(), c1.to_local(), c2.to_local()
 
     def upd(g, m, v, p):
         gf = g.float()

@@ -14,14 +14,37 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.sharding import is_dtensor, replicas
 from repro_torch.treepath import tree_leaves, tree_map, tree_unzip
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, leaf sums
-    added in the reference's leaf order."""
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    added in the reference's leaf order.  Over ranks (DTensor leaves on a
+    mesh of more than one rank) each rank adds its own blocks' sums, a
+    replicated block's over its count of holders (a power of two: exact),
+    and one all-reduce adds the ranks' partial sums, as the reference's
+    norm over sharded leaves is one all-reduce."""
+    leaves = tree_leaves(tree)
+    if leaves and is_dtensor(leaves[0]) and leaves[0].device_mesh.size() > 1:
+        return _global_norm_over_ranks(leaves)
+    leaves = [torch.sum(torch.square(x.float())) for x in leaves]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _global_norm_over_ranks(leaves) -> torch.Tensor:
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate
+    part = torch.sum(torch.stack([
+        torch.sum(torch.square(x.to_local().float())) / replicas(x)
+        for x in leaves]))
+    # a mesh over ranks spans the whole group (make_search_mesh)
+    total = funcol.wait_tensor(funcol.all_reduce(part, "sum",
+                                                 dist.group.WORLD))
+    mesh = leaves[0].device_mesh
+    return DTensor.from_local(torch.sqrt(total), mesh,
+                              (Replicate(),) * mesh.ndim, run_check=False)
 
 
 def clip_by_global_norm(tree, max_norm: float, inplace: bool = False):

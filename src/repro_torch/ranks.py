@@ -24,6 +24,14 @@ serving engine's control messages).  They keep the lanes path's bits:
 * a gloo group carrying CUDA tensors stages them through host memory
   (:func:`transport` says so);
 * nothing is pickled: a message is a header tensor, then its payload.
+
+:func:`init_counting_ranks` is the dry run's group (``launch.dryrun``): one
+rank of a job of 256 or 512 ranks, in a process of its own, over torch's
+``fake`` backend, which moves no data and returns unwritten memory from
+every collective.  DTensor traces that rank's program on the ``meta``
+device as XLA compiles one device's SPMD module.  Under it
+(:func:`counting`) the real entry points (serving, search, the build, the
+trainer) raise at their start (:func:`refuse_counting`).
 """
 from __future__ import annotations
 
@@ -38,7 +46,8 @@ DEFAULT_TIMEOUT = datetime.timedelta(seconds=600)
 
 # this rank's device, the group's timeout, and the default search mesh over
 # the group (ann.index.default_search_mesh); dropped with the group
-_STATE = {"device": None, "timeout": None, "search_mesh": None}
+_STATE = {"device": None, "timeout": None, "search_mesh": None,
+          "counting": False}
 
 
 def init_ranks(device=None, backend: Optional[str] = None,
@@ -84,11 +93,52 @@ def init_ranks(device=None, backend: Optional[str] = None,
     return dev
 
 
+def init_counting_ranks(world: int, rank: int = 0) -> torch.device:
+    """Join a process group of ``world`` ranks as ``rank`` that moves no
+    data (torch's ``fake`` backend, registered by
+    ``torch.testing._internal.distributed.fake_pg``, with its
+    ``FakeStore``): this process alone stands for the whole job, and each
+    collective returns unwritten memory.  The rank's device is ``meta``.
+    Only the dry run calls it, in a process of its own (a process holds
+    one default group).  Raises when the backend cannot be had."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up: the counting group "
+                           "needs a process of its own")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("the dry run's counting group needs torch's "
+                           "'fake' process-group backend, which this torch "
+                           f"does not have ({e})") from e
+    dist.init_process_group("fake", rank=int(rank), world_size=int(world),
+                            store=FakeStore())
+    dev = torch.device("meta")
+    _STATE.update(device=dev, timeout=DEFAULT_TIMEOUT, counting=True)
+    return dev
+
+
+def counting() -> bool:
+    """Whether the group up is :func:`init_counting_ranks`' (no data
+    moves: nothing may compute on its results)."""
+    return _STATE["counting"] and dist.is_initialized()
+
+
+def refuse_counting(what: str) -> None:
+    """Raise when the counting group is up: ``what`` is a real path, and
+    the counting group's collectives return unwritten memory."""
+    if counting():
+        raise RuntimeError(
+            f"{what} refuses the dry run's counting group "
+            "(ranks.init_counting_ranks): its collectives move no data; "
+            "only launch.dryrun traces under it")
+
+
 def shutdown() -> None:
     """Leave the process group (every rank calls it)."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _STATE.update(device=None, timeout=None, search_mesh=None)
+    _STATE.update(device=None, timeout=None, search_mesh=None,
+                  counting=False)
 
 
 def is_up() -> bool:

@@ -153,6 +153,7 @@ class AnnEngine:
         metric: Optional[str] = None,
         obs: Optional[Observability] = None,
     ):
+        rank_mod.refuse_counting("AnnEngine")
         self.obs = obs if obs is not None else NULL_OBS
         self.index: Optional[AnnIndex] = None
         self.mesh = mesh

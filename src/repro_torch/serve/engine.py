@@ -12,6 +12,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import ranks
+
 
 def as_tokens(tokens, device) -> torch.Tensor:
     """Token ids (array or tensor) as an int64 tensor on ``device``."""
@@ -24,6 +26,7 @@ class ServeEngine:
     """Generation over a model and its params, on the model's device."""
 
     def __init__(self, model, params, s_max: int = 256):
+        ranks.refuse_counting("ServeEngine")
         self.model = model
         self.params = params
         self.s_max = s_max

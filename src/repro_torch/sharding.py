@@ -14,11 +14,19 @@ divisible by the mesh axis size, as in the reference.
 
 The mesh is the port's :class:`~repro_torch.core.distributed.SearchMesh`,
 and a spec is a plain tuple with the entries of the reference's
-``PartitionSpec`` (a mesh axis name, a tuple of names, or None).  Inside a
-computation there is nothing to constrain: :func:`shard` returns its
-input, and the specs only name where each dimension would go.
-``use_rules``'s mesh is what ``models.moe_a2a.moe_ffn_sharded`` splits its
-positions by (lanes of one device, or ranks).  :func:`param_shardings` is
+``PartitionSpec`` (a mesh axis name, a tuple of names, or None).
+:func:`shard` is the reference's constraint: on a DTensor of the active
+mesh over ranks (the dry run's partitioner: parameters placed by
+:func:`param_shardings`) it redistributes, value and gradient, to the
+spec's placements; on a plain tensor, or a lanes-only mesh, it returns
+its input.  :func:`shard_split` and :func:`shard_merge` are the
+constraints around a reshape that splits or merges a sharded dim, and
+the helpers below them (:func:`unshard`, :func:`repeat_heads`,
+:func:`vocab_lookup`, :func:`arange_like`, :func:`replicated`,
+:func:`like`) take the places where DTensor has no rule of its own, or
+one that would gather more than XLA does.  ``use_rules``'s mesh is what
+``models.moe_a2a.moe_ffn_sharded`` splits its positions by (lanes of one
+device, or ranks).  :func:`param_shardings` is
 the reference's ``NamedSharding`` tree on a mesh laid over ranks: each
 leaf's spec as DTensor placements on the mesh's ``DeviceMesh``
 (``Shard(i)`` on the mesh dims that split tensor dim i, ``Replicate()`` on
@@ -31,10 +39,18 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import math
 import re
 from typing import Dict, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.treepath import keystr_simple, tree_map_with_path
+
+try:
+    from torch.distributed.tensor import DTensor as _DTensor
+except ImportError:         # a torch without distributed support
+    _DTensor = None
 
 __all__ = ["ACT_RULES", "DEFAULT_RULES", "PARAM_RULES", "RankSharding",
            "current_mesh", "keystr_simple", "param_shardings", "param_specs",
@@ -153,11 +169,296 @@ def resolve_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
     return tuple(out)
 
 
+def rank_mesh():
+    """The active mesh when it is laid over ranks, else None."""
+    mesh = _active_mesh.get()
+    return mesh if getattr(mesh, "over_ranks", False) else None
+
+
+def is_dtensor(x) -> bool:
+    return _DTensor is not None and isinstance(x, _DTensor)
+
+
 def shard(x, *logical: Optional[str]):
-    """The reference's sharding constraint on an intermediate.  Every
-    position of the port's mesh sits on one device, so ``x`` comes back as
-    it is."""
-    return x
+    """The reference's sharding constraint on an intermediate (its
+    ``with_sharding_constraint`` under the activation rules).  On a
+    DTensor of the active mesh over ranks, ``x`` is redistributed to the
+    placements of ``resolve_spec(x.shape, logical)`` (axes that do not
+    divide are dropped, as the reference drops them): a ``Partial`` sum
+    is reduced there, as GSPMD reduces it at the constraint.  In every
+    other case (a plain tensor, a lanes-only mesh, no mesh) ``x`` comes
+    back as it is."""
+    mesh = rank_mesh()
+    if mesh is None or not is_dtensor(x) \
+            or x.device_mesh != mesh.device_mesh:
+        return x
+    spec = resolve_spec(tuple(x.shape), logical, mesh,
+                        _active_act_rules.get())
+    return _constrain(x, _placements(spec, mesh.axis_names))
+
+
+class _Constrain(torch.autograd.Function):
+    """A sharding constraint as GSPMD reads one: the value takes the
+    placements, and so does its gradient (the cotangent of
+    ``with_sharding_constraint`` is constrained alike), or, for a gather
+    (``back`` the input's placements), the gradient goes back split as
+    the input was (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, placements, back):
+        ctx.back = back
+        return x.redistribute(placements=placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.back:
+            g = g.redistribute(placements=ctx.back)
+        return g, None, None
+
+
+def _constrain(x, placements, back=None):
+    if tuple(x.placements) == placements and not x.requires_grad:
+        return x
+    return _Constrain.apply(x, placements,
+                            placements if back is None else back)
+
+
+def shard_split(x, shape, *logical: Optional[str]):
+    """``shard(x.reshape(shape), *logical)``, where the reshape splits one
+    dim i of ``x`` into several and ``logical`` (the result's axes) shards
+    no dim past i, so each sharded dim keeps its index.  On a DTensor of
+    the active mesh over ranks, ``x`` takes the result's placements
+    before the reshape and the gradient after it, so neither view splits
+    a dim unevenly (which DTensor refuses); elsewhere it is
+    ``x.reshape``."""
+    return _reshaped(x, shape, shape, logical)
+
+
+def shard_merge(x, shape, *logical: Optional[str]):
+    """``x.reshape(shape)`` merging dims i.. of ``x`` into one, with ``x``
+    constrained to ``logical`` (its own axes, none sharded past i): the
+    merged dim is split where dim i is.  On a DTensor of the active mesh
+    over ranks the result and its gradient take those placements, so the
+    gradient's view back to ``x``'s shape splits no dim unevenly;
+    elsewhere it is ``x.reshape``."""
+    return _reshaped(x, shape, tuple(x.shape), logical)
+
+
+def _reshaped(x, shape, spec_shape, logical):
+    mesh = rank_mesh()
+    if mesh is None or not is_dtensor(x) \
+            or x.device_mesh != mesh.device_mesh:
+        return x.reshape(shape)
+    spec = resolve_spec(tuple(spec_shape), logical, mesh,
+                        _active_act_rules.get())
+    placements = _placements(spec, mesh.axis_names)
+    return _canonical(_constrain(_constrain(x, placements).reshape(shape),
+                                 placements))
+
+
+def _canonical(x):
+    """``x`` with the row-major strides of its shape.  A DTensor's strides
+    follow its local tensor's, whose size-1 dims may carry any stride
+    (another on the meta device than on a card), and a product folds a
+    3-D operand into one 2-D matmul only on row-major strides (the plain
+    path's reshape gives them); the same ops on every device."""
+    want, step = [], 1
+    for size in reversed(x.shape):
+        want.append(step)
+        step *= size
+    want = tuple(reversed(want))
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    return DTensor.from_local(local.contiguous(), x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=x.shape, stride=want)
+
+
+def unshard(x, *axes: str):
+    """The DTensor ``x`` whole along the mesh axes ``axes`` (an all-gather
+    over each that splits it: FSDP's gather of a weight), as it is along
+    the others; anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    names = x.device_mesh.mesh_dim_names
+    placements = tuple(Replicate() if n in axes else p
+                       for n, p in zip(names, x.placements))
+    return _constrain(x, placements, tuple(x.placements))
+
+
+def repeat_heads(kv, q, groups: int):
+    """GQA's expansion on DTensors: ``kv`` (B, S, H_kv, D), whole along
+    its heads, with each head repeated ``groups`` times, split over ranks
+    as ``q``'s heads are (each rank repeats its rows' kv heads and keeps
+    the block of q's heads it holds: nothing is sent).  The gradient of
+    ``kv`` is a partial sum over those ranks, reduced where it is next
+    read whole.  Without it a q whose heads split over ranks, beside kv
+    heads that do not, would be gathered and every rank would compute
+    every head."""
+    from torch.distributed.tensor import DTensor, Partial
+    split = tuple(p.is_shard(2) for p in q.placements)
+    local = kv.to_local(grad_placements=tuple(
+        Partial() if s else p for s, p in zip(split, kv.placements)))
+    offset, size = block(q, 2)
+    rows = local.repeat_interleave(groups, dim=2)[:, :, offset:offset + size]
+    return DTensor.from_local(rows, q.device_mesh, tuple(
+        qp if s else p for s, qp, p in zip(split, q.placements,
+                                           kv.placements)),
+        run_check=False)
+
+
+def block(x, dim: int) -> Tuple[int, int]:
+    """(offset, size) of this rank's block of the DTensor ``x`` along dim
+    ``dim`` (:func:`span`)."""
+    dim %= x.ndim
+    return span(x.shape[dim], x.device_mesh, x.placements, dim)
+
+
+def span(n: int, mesh, placements, dim: int) -> Tuple[int, int]:
+    """(offset, size) of this rank's block of a dim of ``n`` elements
+    (tensor dim ``dim``) placed by ``placements`` on ``mesh``: the mesh
+    dims that split it, in mesh order, each split the previous one's
+    block evenly (``resolve_spec`` keeps only axes that divide).  Plain
+    arithmetic: DTensor's own helper runs tensor ops."""
+    coord = mesh.get_coordinate()
+    size, offset = n, 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            size //= mesh.size(i)
+            offset += coord[i] * size
+    return offset, size
+
+
+def spec_placements(shape, *logical: Optional[str]):
+    """The placements ``shard(x, *logical)`` gives a tensor of ``shape``
+    on the active mesh over ranks (None without one)."""
+    mesh = rank_mesh()
+    if mesh is None:
+        return None
+    return _placements(resolve_spec(tuple(shape), logical, mesh,
+                                    _active_act_rules.get()),
+                       mesh.axis_names)
+
+
+def sum_parts(part, mesh, split, placements):
+    """``part``, this rank's share of a sum over the mesh dims flagged in
+    ``split``, as a DTensor placed by ``placements`` on the others and
+    whole over those (one all-reduce); the gradient of each part is the
+    whole gradient."""
+    from torch.distributed.tensor import Partial, Replicate
+    return _SumParts.apply(
+        part, mesh,
+        tuple(Partial() if s else p for s, p in zip(split, placements)),
+        tuple(Replicate() if s else p for s, p in zip(split, placements)))
+
+
+def vocab_lookup(table, ids):
+    """The rows ``table[ids]`` of a DTensor table (V, d), whole along d,
+    for DTensor ids (B, S), on each rank's own rows of ids.  A table whole
+    along V is indexed as the plain path indexes it.  One whose vocab dim
+    is split over ranks: each rank looks up the ids its block holds, zeros
+    elsewhere, and one all-reduce over the vocab's ranks adds the parts
+    (the rows come back whole over those ranks, and each rank's part
+    takes the whole gradient).  DTensor has no rule for ``aten.index``,
+    and its ``embedding`` rule's mask makes device-dependent ops."""
+    from torch.distributed.tensor import Partial, Replicate
+    split = tuple(p.is_shard(0) for p in table.placements)
+    ids = ids.long().redistribute(placements=tuple(
+        Replicate() if s else p for s, p in zip(split, ids.placements)))
+    # the table's gradient from this rank's rows alone: a partial sum over
+    # the ranks that split the rows
+    local_table = table.to_local(grad_placements=tuple(
+        Partial() if i.is_shard() else t
+        for i, t in zip(ids.placements, table.placements)))
+    if not any(split):      # the plain path's own gather
+        return like(local_table[ids.to_local()], ids)
+    offset, size = block(table, 0)
+    local = ids.to_local() - offset
+    inside = (local >= 0) & (local < size)
+    rows = torch.nn.functional.embedding(
+        local.clamp(min=0, max=size - 1), local_table)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return sum_parts(rows, table.device_mesh, split, ids.placements)
+
+
+class _SumParts(torch.autograd.Function):
+    """This rank's part of a sum over ranks (``partial`` placements) as a
+    DTensor reduced to ``whole``; the gradient of each part is the whole
+    gradient (DTensor's own ``from_local`` would split it over the
+    parts)."""
+
+    @staticmethod
+    def forward(ctx, part, mesh, partial, whole):
+        from torch.distributed.tensor import DTensor
+        ctx.whole = whole
+        return DTensor.from_local(part, mesh, partial,
+                                  run_check=False).redistribute(
+            placements=whole)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != tuple(ctx.whole):
+            g = g.redistribute(placements=ctx.whole)
+        return g.to_local(), None, None, None
+
+
+def sharded_dim(x, dim: int) -> bool:
+    """Whether ``x`` is a DTensor whose dim ``dim`` is split over ranks."""
+    if not is_dtensor(x):
+        return False
+    dim %= x.ndim
+    return any(p.is_shard(dim) for p in x.placements)
+
+
+def arange_like(x, dim: int):
+    """``torch.arange(x.shape[dim])`` on ``x``'s device; on a DTensor laid
+    out as ``x``'s dim ``dim`` (each rank the ids of its own block of it,
+    whole on the mesh dims that do not split it)."""
+    n = x.shape[dim]
+    if not is_dtensor(x):
+        return torch.arange(n, device=x.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dim %= x.ndim
+    placements = tuple(Shard(0) if p.is_shard(dim) else Replicate()
+                       for p in x.placements)
+    offset, size = block(x, dim)
+    local = torch.arange(offset, offset + size, device=x.to_local().device)
+    return DTensor.from_local(local, x.device_mesh, placements,
+                              run_check=False)
+
+
+def replicas(x) -> int:
+    """How many ranks hold each element of the DTensor ``x`` (the product
+    of the mesh dims it is replicated over)."""
+    from torch.distributed.tensor import Replicate
+    return math.prod(x.device_mesh.size(i)
+                     for i, p in enumerate(x.placements)
+                     if isinstance(p, Replicate))
+
+
+def replicated(t, ref):
+    """``t``, a plain tensor that every rank computes whole, as a
+    replicated DTensor on ``ref``'s mesh when ``ref`` is a DTensor, else
+    ``t`` as it is (an index, a mask or a table that a DTensor op takes
+    beside ``ref``)."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def like(local, ref):
+    """``local``, this rank's block of a tensor laid out as ``ref`` (the
+    same placements, and the sharded dims of ``ref`` sized as its local
+    part), as a DTensor when ``ref`` is one, else ``local`` itself."""
+    if not is_dtensor(ref):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,8 @@ from repro_torch.core.distributed import SearchMesh, check_mesh_device
 from repro_torch.models.params import unstack
 from repro_torch.optim import clip_by_global_norm, make_optimizer
 from repro_torch.optim.grad import compressed_psum
-from repro_torch.sharding import current_mesh, use_mesh, whole
+from repro_torch.sharding import (current_mesh, is_dtensor, like, use_mesh,
+                                  whole)
 from repro_torch.treepath import tree_leaves, tree_map
 
 
@@ -64,6 +65,32 @@ def _mb_split(x: torch.Tensor, m: int, axis: int) -> torch.Tensor:
     """Split ``axis`` into (m, axis//m) and move the microbatch dim front:
     microbatch i is the i-th contiguous chunk of rows (a view)."""
     return torch.movedim(x.unflatten(axis, (m, x.shape[axis] // m)), axis, 0)
+
+
+def microbatch_rows(batch: int, data: int, m: int) -> list:
+    """The global rows of the ``m`` microbatches of a batch of ``batch``
+    rows split over ``data`` ranks (:func:`_microbatches`), in order:
+    microbatch i holds, of rank r's rows [r·B/n, (r+1)·B/n), the i-th
+    contiguous chunk of B/(n·m), so rows r·B/n + i·B/(n·m) + j for every
+    r.  A one-device step over the rows in this order has the same
+    microbatches."""
+    per = batch // data
+    return [r * per + i * (per // m) + j for i in range(m)
+            for r in range(data) for j in range(per // m)]
+
+
+def _microbatches(x: torch.Tensor, m: int, axis: int):
+    """The ``m`` microbatches of ``x`` along ``axis``: :func:`_mb_split`'s
+    contiguous chunks.  A DTensor whose ``axis`` is sharded over ranks
+    splits each rank's own rows instead (nothing is sent): the global rows
+    of :func:`microbatch_rows`."""
+    if not is_dtensor(x):
+        return _mb_split(x, m, axis)
+    local = x.to_local()
+    if local.shape[axis] % m:
+        raise ValueError(f"a rank's {local.shape[axis]} rows do not split "
+                         f"into {m} microbatches")
+    return [like(part, x) for part in _mb_split(local, m, axis)]
 
 
 def init_train_state(model, generator: torch.Generator,
@@ -113,9 +140,14 @@ def loss_and_grad(model, params, batch, remat: bool, acc) -> torch.Tensor:
 
 
 def _zeros(params, dtype=None, lanes: int = 0):
-    return tree_map(lambda p: torch.zeros(
-        ((lanes,) if lanes else ()) + tuple(p.shape),
-        dtype=dtype or p.dtype, device=p.device), params)
+    """Zeros like each leaf (with ``lanes`` leading rows); a DTensor
+    leaf's are placed as it is."""
+    def one(p):
+        if lanes:
+            return torch.zeros((lanes,) + tuple(p.shape),
+                               dtype=dtype or p.dtype, device=p.device)
+        return torch.zeros_like(p, dtype=dtype or p.dtype)
+    return tree_map(one, params)
 
 
 def make_train_step(model, tcfg: TrainConfig):
@@ -129,7 +161,7 @@ def make_train_step(model, tcfg: TrainConfig):
     def train_step(state: TrainState, batch):
         if m > 1:
             grads = _zeros(state.params, torch.float32)
-            mbs = {k: _mb_split(v, m, BATCH_AXIS.get(k, 0))
+            mbs = {k: _microbatches(v, m, BATCH_AXIS.get(k, 0))
                    for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)

@@ -40,6 +40,7 @@ class Trainer:
     def __init__(self, model, tcfg: TrainConfig, stream: TokenStream,
                  train_step: Optional[Callable] = None,
                  max_recoveries: int = 3):
+        rank_mod.refuse_counting("Trainer")
         self.model = model
         self.tcfg = tcfg
         self.stream = stream

@@ -12,7 +12,8 @@ import torch
 from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
 from repro.sharding import param_specs as ref_param_specs
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.config import SHAPES_BY_NAME
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.distributed import make_search_mesh
 from repro_torch.launch import dryrun, dryrun_ann
 from repro_torch.launch.mesh import make_production_mesh
@@ -121,9 +122,13 @@ def test_dryrun_cli_writes_reference_keys(arch, shape, tmp_path):
     res = json.loads(out.read_text())
     assert sorted(res) == [f"{arch}|{shape}|{m}" for m in
                            ("16x16", "1xh100", "2x16x16")]
+    cfg = get_smoke_config(arch)
+    split = cfg.family in dryrun.PARTITIONED
     for key, row in res.items():
         assert set(row) == REF_KEYS, key
         assert row["status"] == "ok" and row["flops"] > 0
+        if split and not key.endswith("1xh100"):
+            continue
         assert row["t_collective_s"] is None and row["collectives"] is None
         assert row["dominant"] in ("compute", "memory")
     one = res[f"{arch}|{shape}|1xh100"]
@@ -132,8 +137,28 @@ def test_dryrun_cli_writes_reference_keys(arch, shape, tmp_path):
     assert mem["peak_bytes"] == mem["argument_bytes"] + \
         mem["trace_peak_bytes"]
     wide = res[f"{arch}|{shape}|16x16"]
-    assert wide["chips"] == 256 and wide["memory"]["peak_bytes"] is None
+    assert wide["chips"] == 256
     assert 0 < wide["memory"]["argument_bytes"] <= mem["argument_bytes"]
+    if not split:
+        assert wide["memory"]["peak_bytes"] is None
+    else:
+        # the partitioner: one rank's collectives and peak, its local
+        # shards' bytes those the mesh's specs give a card
+        model = build_model(cfg, device="meta")
+        tcfg = dryrun.train_config_for(cfg)
+        args = dryrun.cell_arguments(model, cfg, SHAPES_BY_NAME[shape], tcfg)
+        for name, multi in (("16x16", False), ("2x16x16", True)):
+            row = res[f"{arch}|{shape}|{name}"]
+            assert row["collectives"] is not None
+            assert any(v > 0 for v in row["collectives"].values())
+            assert row["t_collective_s"] is not None
+            assert row["t_collective_s"] > 0 and row["reason"] is None
+            m = row["memory"]
+            assert m["peak_bytes"] == m["argument_bytes"] + \
+                m["trace_peak_bytes"]
+            assert isinstance(row["fits"], bool)
+            assert m["argument_bytes"] == dryrun.per_card_bytes(
+                args, make_production_mesh(multi, "meta"))
     # a rerun keeps what is cached
     assert dryrun.main(["--smoke", "--arch", arch, "--shape", shape,
                         "--out", str(out)]) == 0
