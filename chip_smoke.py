@@ -292,25 +292,37 @@ Phases, one JSON line each:
                queries/s, mean batch.  The kernels line's rows gain
                ``launches_ranks``.
 
- 22. partition — last: the dry run's partitioner (launch/dryrun.py).  (a)
-               qwen2.5-3b decode_32k on 16x16 (gspmd) and
-               qwen3-moe-30b-a3b decode_32k on 2x16x16 (gspmd and a2a)
-               traced on the meta device as rank 0 of a counting group of
-               256 or 512 ranks in spawned workers, their collective
-               bytes a card by kind, peak, fit, dominant term and trace
-               seconds; (b) llama3.2-3b at full width, 2 layers, f32,
-               through the DTensor path (parameters placed by
-               param_shardings on a (1, world) mesh over an NCCL group of
-               every card, this process rank 0): the forward's logits, a
-               prefill of 8 x 64 and 8 decode steps, one train step of 2
-               microbatches (loss, norm, first moments), each equal to the
-               plain one-card run bit for bit on a world of 1 (within
-               1e-5 of the largest value on more); (c) the op record of
-               (b)'s decode step (8 against 128) on the card equal to the
-               counting group's meta record of the same rank and mesh op
-               for op, argument bytes exact.  None of the six kernels
-               launched; the kernels line's rows gain
-               ``launches_partition`` (0).
+ 22. partition — last: the dry run's partitioner (launch/dryrun.py) and
+               the ANN dry run's collective term (launch/dryrun_ann.py).
+               (a) qwen2.5-3b decode_32k on 16x16 (gspmd),
+               qwen3-moe-30b-a3b decode_32k on 2x16x16 (gspmd and a2a),
+               mamba2-2.7b and whisper-large-v3 decode_32k on 16x16,
+               zamba2-7b decode_32k on 2x16x16, and the ANN walker and
+               corpus cells on 16x16, traced on the meta device as rank 0
+               of a counting group of 256 or 512 ranks in spawned workers:
+               collective bytes a card by kind, peak, fit, dominant term
+               and trace seconds; the walker cell's all-gather a card must
+               be one global round's queues and hash tables (269,615,104
+               B) plus the port's own gather of the answer, its all-reduce
+               768 B; (b) llama3.2-3b (2 layers), zamba2-7b (one group: 6
+               mamba layers and the shared block) and whisper-large-v3 (2
+               + 2 layers) at full width in f32, through the DTensor path
+               (parameters placed by param_shardings on a (1, world) mesh
+               over an NCCL group of every card, this process rank 0): the
+               forward's logits, a prefill of 8 x 64 and 8 decode steps,
+               one train step of 2 microbatches (loss, norm, first
+               moments), each equal to the plain one-card run bit for bit
+               on a world of 1 (within 1e-5 of the largest value on more);
+               (c) the op record of llama3.2-3b's decode step (8 against
+               128) on the card equal to the counting group's meta record
+               of the same rank and mesh op for op, argument bytes exact;
+               the walker search (20,000 random nodes, 16 queries, 4
+               walkers a rank, one trip of each loop, through rowgather)
+               over the NCCL group equal bit for bit to its lanes run
+               through rowgather's plain twin, its collectives those of
+               the meta record in order, name and shape.  (b) launches none of the six kernels, (c)'s search
+               rowgather alone; the kernels line's rows gain
+               ``launches_partition``.
 
 ``--profile-src DIR`` runs phases 4, 5 and 11 only, with the repro_torch
 package under DIR, and times l2dist_rowgather, l2dist_dma and
@@ -4993,30 +5005,51 @@ def ranks_phase(seed: int, smi, keep: dict, work: str):
     return out, launches
 
 
-# phase 22 (partition): the dry run's partitioner (launch/dryrun.py).  (a)
+# phase 22 (partition): the dry run's partitioner (launch/dryrun.py) and
+# the ANN dry run's collective term (launch/dryrun_ann.py).  (a)
 # PARTITION_TRACES, full-width cells traced on the meta device as rank 0 of
-# a counting group of 256 or 512 ranks in the dry run's workers; (b)
-# PARTITION_ARCH at full width with PARTITION_LAYERS layers in f32 through
-# the DTensor path over an NCCL group of every card on a (1, world) mesh,
-# against the plain one-card run; (c) (b)'s decode step recorded on the card
-# against the counting group's meta record of the same rank and mesh.
+# a counting group of 256 or 512 ranks in the dry run's workers, and the
+# ANN walker and corpus cells on 16x16; (b) PARTITION_MODELS at full width
+# and a cut depth in f32 through the DTensor path over an NCCL group of
+# every card on a (1, world) mesh, against the plain one-card run; (c)
+# PARTITION_ARCH's decode step recorded on the card against the counting
+# group's meta record of the same rank and mesh, and the walker search
+# (one trip of each loop, through rowgather) over the NCCL group against
+# its lanes run and the meta record's collectives.
 PARTITION_TRACES = (("qwen2.5-3b", "decode_32k", "16x16", "gspmd"),
                     ("qwen3-moe-30b-a3b", "decode_32k", "2x16x16", "gspmd"),
-                    ("qwen3-moe-30b-a3b", "decode_32k", "2x16x16", "a2a"))
-PARTITION_ARCH = "llama3.2-3b"
-PARTITION_LAYERS = 2
+                    ("qwen3-moe-30b-a3b", "decode_32k", "2x16x16", "a2a"),
+                    ("mamba2-2.7b", "decode_32k", "16x16", "gspmd"),
+                    ("zamba2-7b", "decode_32k", "2x16x16", "gspmd"),
+                    ("whisper-large-v3", "decode_32k", "16x16", "gspmd"))
+PARTITION_ANN = ("walker", "corpus")   # the ANN dry run's cells on 16x16
+# (b): each arch at full width with these changes (its depth cut), in f32:
+# zamba2's one group of 6 mamba layers and the shared attention block
+PARTITION_MODELS = (("llama3.2-3b", {"num_layers": 2}),
+                    ("zamba2-7b", {"num_layers": 7}),
+                    ("whisper-large-v3", {"num_layers": 2,
+                                          "encoder_layers": 2}))
+PARTITION_ARCH = PARTITION_MODELS[0][0]   # (c)'s decode record
 PARTITION_B, PARTITION_PROMPT, PARTITION_SMAX = 8, 64, 128
 PARTITION_STEPS = 8
 PARTITION_MICROBATCHES = 2
 PARTITION_REL = 1e-5          # f32, of the largest value (world > 1)
+# (c)'s walker search: a random graph of the ANN dry run's shape, 4 walkers
+# a rank, one global round of one local round
+PARTITION_ANN_N, PARTITION_ANN_B, PARTITION_ANN_WALKERS = 20_000, 16, 4
+# the walker cell's collectives a card, one global round (64 queries a
+# card, 16 walkers, queues of 128, 2**16-slot hash tables): the all-gather
+# of the queues (ids, dists, checked) and of the tables, and CheckMetrics'
+# all-reduces (u_sum and any_work, then comps), besides the port's gather
+ANN_WALKER_GATHER = 16 * 64 * 128 * (4 + 4 + 1) + 16 * 64 * (1 << 16) * 4
+ANN_WALKER_REDUCE = 3 * 64 * 4
 
 
-def partition_cfg():
-    """(b)'s model: PARTITION_ARCH at full width, PARTITION_LAYERS layers,
-    computing in f32."""
+def partition_cfg(arch: str = PARTITION_ARCH):
+    """(b)'s model ``arch``: full width, PARTITION_MODELS' depth, f32."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(PARTITION_ARCH),
-                               num_layers=PARTITION_LAYERS, dtype="float32")
+    return dataclasses.replace(get_config(arch), dtype="float32",
+                               **dict(PARTITION_MODELS)[arch])
 
 
 def partition_shape():
@@ -5028,13 +5061,40 @@ def partition_shape():
 
 def partition_inputs(cfg, seed: int) -> dict:
     """(b)'s numpy inputs from ``seed``: prompt tokens (B, P), the decode
-    tokens (PARTITION_STEPS, B, 1), train targets and a 0/1 mask."""
+    tokens (PARTITION_STEPS, B, 1), train targets and a 0/1 mask; an
+    encoder-decoder's frames (B, encoder_ctx, d_model) after them."""
     rng = np.random.RandomState(seed + 22)
     v, b, p = cfg.vocab_size, PARTITION_B, PARTITION_PROMPT
-    return {"tokens": rng.randint(0, v, (b, p)),
-            "steps": rng.randint(0, v, (PARTITION_STEPS, b, 1)),
-            "targets": rng.randint(0, v, (b, p)),
-            "mask": (rng.rand(b, p) > 0.25).astype(np.float32)}
+    out = {"tokens": rng.randint(0, v, (b, p)),
+           "steps": rng.randint(0, v, (PARTITION_STEPS, b, 1)),
+           "targets": rng.randint(0, v, (b, p)),
+           "mask": (rng.rand(b, p) > 0.25).astype(np.float32)}
+    if cfg.encoder_layers:
+        out["frames"] = rng.randn(b, cfg.encoder_ctx,
+                                  cfg.d_model).astype(np.float32)
+    return out
+
+
+def partition_ann_cfg(backend: str = "rowgather"):
+    """(c)'s walker search: the ANN dry run's config, one trip of each
+    loop, through ``backend``."""
+    from repro_torch.launch import dryrun_ann
+    return dryrun_ann.CFG.with_(global_rounds=1, local_steps=1,
+                                dist_backend=backend)
+
+
+def partition_ann(mesh, seed: int, backend: str = "rowgather"):
+    """(c)'s walker search over ``mesh`` (a (1, W) mesh: over ranks, or
+    lanes of this card) through ``backend``: ids, dists and stats on the
+    host, and the op record's collectives
+    (``dryrun_ann.collective_keys``)."""
+    from repro_torch.launch import dryrun_ann
+    graph = dryrun_ann.make_graph(PARTITION_ANN_N, seed, mesh.device)
+    q = dryrun_ann.make_queries(PARTITION_ANN_B, seed, mesh.device)
+    counter, (ids, dists, stats), _ = dryrun_ann.trace_search(
+        "walker", graph, q, mesh, partition_ann_cfg(backend))
+    return ((ids.cpu(), dists.cpu(), [t.cpu() for t in stats]),
+            dryrun_ann.collective_keys(counter.record))
 
 
 def partition_run(model, tree, cfg, x: dict, mesh=None, *, data: int = 1,
@@ -5077,8 +5137,13 @@ def partition_run(model, tree, cfg, x: dict, mesh=None, *, data: int = 1,
         params = (place_arguments({"params": tree}, mesh)["params"]
                   if mesh is not None else tree)
         tok = put(x["tokens"], "batch", "seq")
-        out["logits"] = whole(model.forward(params, tok)[0])
-        logits, st = model.prefill(params, tok, s_max=s_max)
+        # an encoder-decoder reads the frames before the tokens
+        front = (put(x["frames"], "batch", "frames", "embed"),) \
+            if "frames" in x else ()
+        logits = model.forward(params, *front, tok)
+        out["logits"] = whole(logits[0] if isinstance(logits, tuple)
+                              else logits)
+        logits, st = model.prefill(params, *front, tok, s_max=s_max)
         out["decode_0"] = whole(logits)
         for i, step in enumerate(x["steps"]):
             logits, st = model.decode_step(
@@ -5096,6 +5161,9 @@ def partition_run(model, tree, cfg, x: dict, mesh=None, *, data: int = 1,
             order = microbatch_rows(b, data, microbatches)
         batch = {k: put(x[k][order], "batch", "seq")
                  for k in ("tokens", "targets", "mask")}
+        if front:
+            batch["frames"] = put(x["frames"][order], "batch", "frames",
+                                  "embed")
         state, metrics = make_train_step(model, tcfg)(state, batch)
         out["loss"] = whole(metrics["loss"])
         out["grad_norm"] = whole(metrics["grad_norm"])
@@ -5127,11 +5195,13 @@ def partition_compare(got: dict, want: dict, exact: bool) -> dict:
 
 
 def partition_body(rank: int, world: int, card: str, job: dict) -> dict:
-    """(b) and (c) on one rank of an NCCL group of ``world`` ranks: the
-    plain run on this card, then the DTensor run on a (1, world) mesh over
-    the ranks, compared (bit for bit on a world of 1); then the op record
-    of (c)'s decode step on the card.  Returns the comparison, walls,
-    launches and the record."""
+    """(b) and (c) on one rank of an NCCL group of ``world`` ranks: for
+    each of PARTITION_MODELS the plain run on this card, then the DTensor
+    run on a (1, world) mesh over the ranks, compared (bit for bit on a
+    world of 1); then the op record of (c)'s decode step on the card, and
+    (c)'s walker search over the ranks and, on rank 0, on lanes of its
+    card through rowgather's plain twin.  Returns the comparisons, walls,
+    launches and the records."""
     import datetime
     import torch
     from repro_torch import ranks
@@ -5146,32 +5216,46 @@ def partition_body(rank: int, world: int, card: str, job: dict) -> dict:
         device=card, backend="nccl", rank=rank, world=world,
         init_method=f"file://{job['dir']}/rdv_partition",
         timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
-    out = {"rank": rank, "device": str(dev)}
+    out = {"rank": rank, "device": str(dev), "models": {}}
     try:
-        cfg = partition_cfg()
-        model = build_model(cfg, device=dev)
-        tree = model.init_tree(torch.Generator(device=dev).manual_seed(
-            job["seed"]))
-        x = partition_inputs(cfg, job["seed"])
-        t0 = time.perf_counter()
-        plain, out["plain_launches"] = counted(partition_run, model, tree,
-                                               cfg, x)
-        out["plain_s"] = time.perf_counter() - t0
         mesh = make_search_mesh((1, world), ("data", "model"),
                                 ranks=(1, world))
-        t0 = time.perf_counter()
-        got, out["launches"] = counted(partition_run, model, tree, cfg, x,
-                                       mesh)
-        out["dtensor_s"] = time.perf_counter() - t0
-        out["rel_err"] = partition_compare(got, plain, exact=world == 1)
-        out["exact"] = world == 1
-        del plain, got, tree
-        torch.cuda.empty_cache()
+        for arch, _ in PARTITION_MODELS:
+            cfg = partition_cfg(arch)
+            model = build_model(cfg, device=dev)
+            tree = model.init_tree(torch.Generator(device=dev).manual_seed(
+                job["seed"]))
+            x = partition_inputs(cfg, job["seed"])
+            one = out["models"][arch] = {}
+            t0 = time.perf_counter()
+            plain, one["plain_launches"] = counted(partition_run, model,
+                                                   tree, cfg, x)
+            one["plain_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got, one["launches"] = counted(partition_run, model, tree, cfg,
+                                           x, mesh)
+            one["dtensor_s"] = time.perf_counter() - t0
+            one["rel_err"] = partition_compare(got, plain,
+                                               exact=world == 1)
+            one["exact"] = world == 1
+            del plain, got, tree, model
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         (out["record"], out["arg_bytes"]), out["record_launches"] = counted(
-            record_cell, cfg, partition_shape(), mesh,
+            record_cell, partition_cfg(), partition_shape(), mesh,
             torch.Generator(device=dev).manual_seed(job["seed"]))
         out["record_s"] = time.perf_counter() - t0
+        walkers = (1, PARTITION_ANN_WALKERS * world)
+        t0 = time.perf_counter()
+        (out["ann"], out["ann_record"]), out["ann_launches"] = counted(
+            partition_ann, make_search_mesh(walkers, ("data", "model"),
+                                            ranks=(1, world)), job["seed"])
+        out["ann_s"] = time.perf_counter() - t0
+        if rank == 0:   # the lanes of this card, through the plain twin
+            (out["ann_lanes"], _), out["ann_lanes_launches"] = counted(
+                partition_ann, make_search_mesh(walkers, ("data", "model"),
+                                                device=dev), job["seed"],
+                "ref")
     finally:
         ranks.shutdown()
     return out
@@ -5183,16 +5267,22 @@ def _partition_entry(rank, world, card, job, path):
 
 
 def partition_phase(seed: int, smi):
-    """Phase 22: the dry run's partitioner.  (a) PARTITION_TRACES traced in
-    the counting workers while (b) and (c) run on the card: every card an
-    NCCL rank (this process rank 0), the DTensor run equal to the plain
-    run (bit for bit on one card), the card's decode record equal to the
-    meta record of the same rank and mesh op for op with the argument
-    bytes exact, none of the six kernels launched.  Returns (the phase's
-    line, its path launches)."""
+    """Phase 22: the dry run's partitioner and the ANN dry run's
+    collective term.  (a) PARTITION_TRACES and the PARTITION_ANN cells
+    traced in the counting workers while (b) and (c) run on the card:
+    every card an NCCL rank (this process rank 0), each DTensor run equal
+    to its plain run (bit for bit on one card), the card's decode record
+    equal to the meta record of the same rank and mesh op for op with the
+    argument bytes exact, none of the six kernels launched by (b); the
+    walker search over the ranks (rowgather its only kernel) equal to its
+    lanes run through the plain twin, its collectives those of the meta
+    record; the walker cell's
+    all-gather a card the queues' and hash tables' of one global round
+    and the port's final gather.  Returns (the phase's line, its path
+    launches)."""
     import multiprocessing
     import torch
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, dryrun_ann
     from repro_torch.launch.op_profile import first_difference
     from repro_torch.launch.roofline import collective_kind
     t_phase = time.perf_counter()
@@ -5207,9 +5297,16 @@ def partition_phase(seed: int, smi):
         traces = [(c, dryrun.partition_worker(c[2]).submit(
             dryrun._partition_task, c[0], c[1], c[2], {"moe_impl": c[3]}))
             for c in PARTITION_TRACES]
+        ann_traces = [(kind, dryrun.partition_worker("16x16").submit(
+            dryrun_ann.partition_cell, kind, False))
+            for kind in PARTITION_ANN]
         meta = dryrun.counting_worker(count).submit(
             dryrun.record_task, partition_cfg(), partition_shape(),
             (1, count))
+        ann_meta = dryrun.counting_worker(count).submit(
+            dryrun_ann.record_task, (1, PARTITION_ANN_WALKERS * count),
+            (1, count), PARTITION_ANN_N, PARTITION_ANN_B,
+            partition_ann_cfg())
         job = {"dir": work, "seed": seed}
         ctx = multiprocessing.get_context("spawn")
         paths = {r: os.path.join(work, f"partition_rank{r}.pt")
@@ -5235,11 +5332,18 @@ def partition_phase(seed: int, smi):
                     p.join(30)
         launches = {}
         for o in outs:
-            for part in ("plain_launches", "launches", "record_launches"):
-                launches[f"partition_{part}_rank{o['rank']}/ref"] = o[part]
+            for arch, one in o["models"].items():
+                for part in ("plain_launches", "launches"):
+                    launches[f"partition_{arch}_{part}_rank{o['rank']}"
+                             f"/ref"] = one[part]
+            launches[f"partition_record_rank{o['rank']}/ref"] = \
+                o["record_launches"]
+            launches[f"partition_ann_rank{o['rank']}/rowgather"] = \
+                o["ann_launches"]
+        lead = outs[0]
+        launches["partition_ann_lanes/ref"] = lead["ann_lanes_launches"]
         check_launches(launches)
         record, arg_bytes = meta.result()
-        lead = outs[0]
         diff = first_difference(lead["record"], record)
         if diff is not None or lead["arg_bytes"] != arg_bytes:
             raise AssertionError(f"partition: the card's decode record "
@@ -5249,19 +5353,49 @@ def partition_phase(seed: int, smi):
         if any(o["record"] != lead["record"] for o in outs):
             raise AssertionError("partition: the ranks' records differ")
         out["dtensor_vs_plain"] = {
-            "exact": lead["exact"], "arch": PARTITION_ARCH,
-            "layers": PARTITION_LAYERS, "batch": PARTITION_B,
-            "prompt": PARTITION_PROMPT, "decode_steps": PARTITION_STEPS,
-            "microbatches": PARTITION_MICROBATCHES,
-            "max_rel_err": max(max(o["rel_err"].values()) for o in outs),
-            "plain_s": [o["plain_s"] for o in outs],
-            "dtensor_s": [o["dtensor_s"] for o in outs]}
-        out["record"] = {"ops": len(record), "equal": True,
-                         "argument_bytes": arg_bytes,
+            arch: {"exact": lead["models"][arch]["exact"],
+                   "changes": changes, "batch": PARTITION_B,
+                   "prompt": PARTITION_PROMPT,
+                   "decode_steps": PARTITION_STEPS,
+                   "microbatches": PARTITION_MICROBATCHES,
+                   "max_rel_err": max(max(o["models"][arch][
+                       "rel_err"].values()) for o in outs),
+                   "plain_s": [o["models"][arch]["plain_s"] for o in outs],
+                   "dtensor_s": [o["models"][arch]["dtensor_s"]
+                                 for o in outs]}
+            for arch, changes in PARTITION_MODELS}
+        out["record"] = {"arch": PARTITION_ARCH, "ops": len(record),
+                         "equal": True, "argument_bytes": arg_bytes,
                          "collectives": sum(
                              collective_kind(e[0]) is not None
                              for e in record),
                          "card_s": lead["record_s"]}
+        # (c)'s walker search: the answer of the ranks through rowgather =
+        # the lanes' through its plain twin (integer coordinates: every sum
+        # exact), and its collectives = the meta record's
+        want = lead["ann_lanes"]
+        ann_meta = ann_meta.result()
+        for o in outs:
+            ids, dists, stats = o["ann"]
+            if not (torch.equal(ids, want[0]) and torch.equal(dists, want[1])
+                    and all(torch.equal(a, b)
+                            for a, b in zip(stats, want[2]))):
+                raise AssertionError(f"partition: the walker search on rank "
+                                     f"{o['rank']} differs from its lanes "
+                                     "run")
+            if o["ann_record"] != ann_meta:
+                raise AssertionError(
+                    f"partition: rank {o['rank']}'s walker collectives "
+                    f"{[e[0] for e in o['ann_record']]} differ from the "
+                    f"meta record's {[e[0] for e in ann_meta]}")
+        out["ann_search"] = {
+            "nodes": PARTITION_ANN_N, "queries": PARTITION_ANN_B,
+            "walkers": PARTITION_ANN_WALKERS * count,
+            "equal_to_lanes": True, "collectives": len(ann_meta),
+            "collectives_equal_meta": True,
+            "lanes_backend": "ref",
+            "launches": lead["ann_launches"]["l2dist_rowgather"],
+            "seconds": [o["ann_s"] for o in outs]}
         keep = ("collectives", "collective_wire_bytes", "t_collective_s",
                 "t_compute_s", "t_memory_s", "dominant", "fits", "trace_s",
                 "ops")
@@ -5279,6 +5413,29 @@ def partition_phase(seed: int, smi):
                     k: v / chips for k, v in facts["collectives"].items()},
                 peak_bytes=facts["memory"]["peak_bytes"],
                 argument_bytes=facts["memory"]["argument_bytes"]))
+        for kind, fut in ann_traces:
+            facts = fut.result()
+            chips = facts["chips"]
+            card = {k: v // chips for k, v in facts["collectives"].items()}
+            port = facts["port_only_collectives"]["all-gather"] // chips
+            if kind == "walker" and (
+                    card["all-gather"] != ANN_WALKER_GATHER + port
+                    or card["all-reduce"] != ANN_WALKER_REDUCE):
+                raise AssertionError(
+                    f"partition: the walker cell's collectives a card "
+                    f"{card} (port's own gather {port}) are not one global "
+                    f"round's {ANN_WALKER_GATHER} + {port} B all-gather and "
+                    f"{ANN_WALKER_REDUCE} B all-reduce")
+            out["traces"].append(dict(
+                {k: facts[k] for k in (
+                    "collective_wire_bytes", "t_collective_s", "t_compute_s",
+                    "t_memory_s", "dominant", "fits", "compile_s", "ops",
+                    "loop_trips")},
+                arch=f"speedann-{kind}", shape="serve", mesh="16x16",
+                chips=chips, collective_bytes_per_card=card,
+                port_only_bytes_per_card=port,
+                peak_bytes=facts["memory"]["peak_bytes"],
+                index_bytes=facts["memory"]["index_bytes"]))
     finally:
         dryrun.close_workers()
         shutil.rmtree(work, ignore_errors=True)
@@ -5554,7 +5711,8 @@ def run_phases(args, work: str, t_start: float, name: str, smi) -> int:
     parted, part_launches = partition_phase(args.seed, smi)
     emit(parted)
     for row in rows:
-        # the partitioned LM launches none of the six kernels
+        # the partitioned LMs launch none of the six kernels, the walker
+        # search over the ranks rowgather alone
         row["launches_partition"] = sum(c[row["name"]]
                                         for c in part_launches.values())
     emit({"phase": "done", "total_seconds": time.perf_counter() - t_start})

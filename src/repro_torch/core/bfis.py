@@ -9,7 +9,9 @@ The reference's ``lax.while_loop`` is a Python loop that tests
 ``any(alive)`` once per step (one host sync per step).  Converged lanes are
 exact no-ops: their new state is discarded by :func:`lane_select`, and the
 visited maps — updated in place — are never written for them (see
-``core.visited``).
+``core.visited``).  On the meta device (the dry run's trace, where nothing
+can be read) :func:`loop_test` runs a loop's body once, as the reference's
+compiled module holds it once.
 """
 from __future__ import annotations
 
@@ -38,6 +40,22 @@ def resolve_dist_fn(cfg: SearchConfig,
         return dist_fn
     from repro_torch.kernels.registry import resolve_backend
     return resolve_backend(cfg)
+
+
+def loop_test() -> Callable[[torch.Tensor], bool]:
+    """The test of a host-tested loop, ``go(alive)``, for one loop: on any
+    device but ``meta`` it is ``bool(alive.any())``, as it always was; on
+    the meta device, where no value can be read, it is True on the first
+    trip only, so the body is traced exactly once (the dry run's count of
+    a loop body, ``launch.dryrun_ann``)."""
+    trips = [0]
+
+    def go(alive: torch.Tensor) -> bool:
+        trips[0] += 1
+        if alive.device.type == "meta":
+            return trips[0] == 1
+        return bool(alive.any())
+    return go
 
 
 def dist_l2(graph: PaddedCSR, active_ids: torch.Tensor,
@@ -255,7 +273,8 @@ def _run_topm_batch(graph: PaddedCSR, queries: torch.Tensor,
         return fq.has_unchecked(s.frontier) & (s.stats.steps < cfg.max_steps)
 
     alive = lanes_live(s)
-    while bool(alive.any()):
+    go = loop_test()
+    while go(alive):
         live = fq.has_unchecked(s.frontier).to(torch.int32)
         m = staged_m(s.stats.steps, cfg)
         frontier, visited, _, n, uniq = expand_batch(

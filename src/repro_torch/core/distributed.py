@@ -56,7 +56,7 @@ from repro_torch import ranks as rank_mod
 from repro_torch.core import queue as fq
 from repro_torch.core import visited as vs
 from repro_torch.core.bfis import (DistFn, _seed_frontier, expand_lanes,
-                                   lane_select, resolve_dist_fn,
+                                   lane_select, loop_test, resolve_dist_fn,
                                    search_topm_batch, staged_m)
 from repro_torch.core.config import SearchConfig
 from repro_torch.core.graph import PaddedCSR
@@ -272,7 +272,8 @@ def _local_rounds(graph: PaddedCSR, q_rep: torch.Tensor,
     c = _LocalCarry(local, zeros, torch.zeros_like(zeros, dtype=torch.bool),
                     zeros)
     alive = torch.full_like(c.merge, cfg.local_steps > 0)
-    while bool(alive.any()):
+    go = loop_test()
+    while go(alive):
         had = fq.has_unchecked(c.local) & walker_ok
         lanes = fq.Frontier(*(t.reshape(bsz * w, -1) for t in c.local))
         lanes, _, up, n = expand_lanes(

@@ -221,5 +221,12 @@ def check_inputs(kernel: str, table: torch.Tensor, ids: torch.Tensor,
         if not (table.is_contiguous() and ids.is_contiguous()
                 and queries.is_contiguous()):
             raise ValueError(f"{kernel}: CUDA inputs must be contiguous")
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"{kernel}: unsupported device {dev}")
+
+
+def traced(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the meta device (the dry run's trace): a
+    kernel's wrapper there makes its outputs and reports its launch to the
+    op counter as on a card, and launches nothing (no value exists)."""
+    return t.device.type == "meta"

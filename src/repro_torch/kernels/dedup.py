@@ -99,6 +99,8 @@ def dedupdist(table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
         if op_profile.ACTIVE is not None:
             op_profile.report_gather("dedupdist", table, ids, queries, out,
                                      3 - int(metric != "l2"), "f32")
+        if _cuda.traced(out):
+            return out
         _cuda.launch("dedup", "dedupdist", table,
                      int(table.dtype == torch.bfloat16), n, d, ids,
                      ids.shape[0], ids.shape[1], tile, queries, out,
@@ -129,6 +131,8 @@ def dedupdist_int8(codes: torch.Tensor, scales: torch.Tensor,
         if op_profile.ACTIVE is not None:
             op_profile.report_gather("dedupdist_int8", codes, ids, queries,
                                      out, 4, "int8", pair_bytes=4)
+        if _cuda.traced(out):
+            return out
         _cuda.launch("dedup_int8", "dedupdist_int8", codes, n, d, scales,
                      ids, ids.shape[0], ids.shape[1], tile, qc, qs, q2, out,
                      int(kmetric == "ip"), _cuda.int8_vec_ok(codes, qc))

@@ -133,11 +133,13 @@ def l2dist_rowgather(table: torch.Tensor, ids: torch.Tensor,
         return _ref.dist_ref(table, ids, queries, metric)
     out = torch.empty(ids.shape, dtype=torch.float32, device=table.device)
     if out.numel():
-        plan = rowgather_plan(ids.shape[0], ids.shape[1], table.shape[1],
-                              table.dtype, _cuda.sm_count(table.device))
         if op_profile.ACTIVE is not None:
             op_profile.report_gather("l2dist_rowgather", table, ids,
                                      queries, out, 3 - ip, "f32")
+        if _cuda.traced(out):
+            return out
+        plan = rowgather_plan(ids.shape[0], ids.shape[1], table.shape[1],
+                              table.dtype, _cuda.sm_count(table.device))
         _cuda.launch("rowgather", "l2dist_rowgather",
                      table, int(table.dtype == torch.bfloat16),
                      table.shape[0], table.shape[1], ids, ids.shape[0],
@@ -160,11 +162,13 @@ def l2dist_dma(table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
         return _ref.dist_expanded_ref(table, ids, queries, metric)
     out = torch.empty(ids.shape, dtype=torch.float32, device=table.device)
     if out.numel():
-        plan = dma_plan(ids.shape[0], ids.shape[1], table.shape[1],
-                        table.dtype, _cuda.sm_count(table.device))
         if op_profile.ACTIVE is not None:
             op_profile.report_gather("l2dist_dma", table, ids, queries,
                                      out, 3 - ip, "f32")
+        if _cuda.traced(out):
+            return out
+        plan = dma_plan(ids.shape[0], ids.shape[1], table.shape[1],
+                        table.dtype, _cuda.sm_count(table.device))
         _cuda.launch("dma", "l2dist_dma",
                      table, int(table.dtype == torch.bfloat16),
                      table.shape[0], table.shape[1], ids, ids.shape[0],

@@ -24,8 +24,8 @@ arguments plus the counter's live peak) and ``fits`` (peak <= 80 GB);
 no collective is counted.  ``16x16`` and ``2x16x16`` are the reference's
 production meshes (``launch.mesh.make_production_mesh``).
 
-The partitioner (the ``CausalLM`` families: dense, moe, vlm): the cell
-runs as rank 0 of a counting group of 256 or 512 ranks
+The partitioner (every family): the cell runs as rank 0 of a counting
+group of 256 or 512 ranks
 (``ranks.init_counting_ranks``, torch's ``fake`` backend, which moves no
 data), in a spawned process a mesh.  The arguments are DTensors on the
 meta device, placed by ``sharding.spec_for_path`` (DEFAULT_RULES; the
@@ -39,10 +39,6 @@ bytes, ``roofline.collective_bytes``) are one card's times ``chips`` (the
 reference's module-global convention), so the terms divide them back;
 ``memory`` holds the local shards' bytes and the peak (those plus the
 rank's live peak), and ``fits``.
-
-The other families (ssm, hybrid, encdec) keep the count divided over the
-mesh: the bytes one card holds under ``param_specs`` and ``ACT_RULES``,
-no peak, no collective (``reason`` names the next slice).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -70,9 +66,10 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import ranks
-from repro_torch.config import (FAMILY_DENSE, FAMILY_ENCDEC, FAMILY_MOE,
-                                FAMILY_VLM, SHAPES_BY_NAME, ModelConfig,
-                                ShapeConfig, TrainConfig)
+from repro_torch.config import (FAMILY_DENSE, FAMILY_ENCDEC, FAMILY_HYBRID,
+                                FAMILY_MOE, FAMILY_SSM, FAMILY_VLM,
+                                SHAPES_BY_NAME, ModelConfig, ShapeConfig,
+                                TrainConfig)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.shapes import cell_matrix
 from repro_torch.launch import roofline as rl
@@ -93,16 +90,13 @@ MESHES = {"1xh100": (1, None), "16x16": (256, False),
           "2x16x16": (512, True)}
 # the reference's mesh names
 MESH_ALIASES = {"single": "16x16", "multi": "2x16x16"}
-NO_PARTITIONER = ("no partitioner for this family: collectives are not "
-                  "counted and the count is divided over the mesh (ROADMAP.md "
-                  "§1 item 8, the next slice: the ssm, hybrid and encdec "
-                  "cells under the partitioner)")
 # the one-card mesh's reason, as before the partitioner
 ONE_CARD = ("no partitioner: collectives are not counted and nothing "
             "is split across cards (ROADMAP.md §1 item 8, the dry "
             "run's partitioner)")
-# the families the partitioner runs (CausalLM)
-PARTITIONED = (FAMILY_DENSE, FAMILY_MOE, FAMILY_VLM)
+# the families the partitioner runs
+PARTITIONED = (FAMILY_DENSE, FAMILY_MOE, FAMILY_VLM, FAMILY_SSM,
+               FAMILY_HYBRID, FAMILY_ENCDEC)
 
 # logical axes of the batch inputs (the reference's batch_specs)
 BATCH_LOGICAL = {
@@ -355,7 +349,7 @@ def analyze(res: Dict) -> Dict:
     nbytes = float(counter.bytes())
     args = res["args"]
     coll = None
-    reason = ONE_CARD if res["mesh"] is None else NO_PARTITIONER
+    reason = ONE_CARD
     if res.get("partitioned"):     # one card's counts, times the cards
         fby = {k: v * chips for k, v in fby.items()}
         nbytes *= chips
@@ -370,7 +364,7 @@ def analyze(res: Dict) -> Dict:
                   "peak_bytes": peak}
         fits = peak <= rl.HBM_BYTES
         reason = None
-    elif res["mesh"] is None:
+    else:
         arg_bytes = tree_bytes(args)
         peak = arg_bytes + counter.peak_bytes
         memory = {"argument_bytes": arg_bytes,
@@ -378,11 +372,6 @@ def analyze(res: Dict) -> Dict:
                   "trace_peak_bytes": counter.peak_bytes,
                   "peak_bytes": peak}
         fits = peak <= rl.HBM_BYTES
-    else:
-        memory = {"argument_bytes": per_card_bytes(args, res["mesh"]),
-                  "output_bytes": None, "trace_peak_bytes": None,
-                  "peak_bytes": None}
-        fits = None
     flops = float(sum(fby.values()))
     terms = rl.roofline_terms(fby, nbytes, coll, chips)
     mf = rl.model_flops(res["cfg"], res["shape"])
@@ -477,8 +466,8 @@ def close_workers() -> None:
 
 def run_cell(arch: str, shape_name: str, meshes, res: Dict, path: str,
              force: bool = False, tag: str = "", **kw) -> int:
-    """Trace one cell once and record it on each of ``meshes`` (the
-    partitioned meshes' traces run in their workers meanwhile); returns
+    """Trace one cell on each of ``meshes`` (the partitioned meshes'
+    traces run in their workers meanwhile, ``1xh100``'s here); returns
     how many meshes failed."""
     todo = [m for m in meshes
             if force or res.get(f"{arch}|{shape_name}|{m}"
@@ -491,32 +480,21 @@ def run_cell(arch: str, shape_name: str, meshes, res: Dict, path: str,
     futures = {m: partition_worker(m).submit(_partition_task, arch,
                                              shape_name, m, kw)
                for m in todo if partitioned(cfg, m)}
-    base = None
     fails = 0
     for m in todo:
         key = f"{arch}|{shape_name}|{m}" + (f"#{tag}" if tag else "")
         t0 = time.perf_counter()
         try:
-            if m in futures:
-                out = futures[m].result()
-            else:
-                if base is None or kw.get("moe_impl") == "a2a":
-                    base = trace_cell(arch, shape_name, m, **kw)
-                cell = dict(base, mesh_kind=m, chips=MESHES[m][0],
-                            mesh=(make_production_mesh(
-                                multi_pod=MESHES[m][1], device="meta",
-                                ranks=False)
-                                  if MESHES[m][1] is not None else None))
-                out = analyze(cell)
+            out = (futures[m].result() if m in futures
+                   else analyze(trace_cell(arch, shape_name, m, **kw)))
             out["status"] = "ok"
             res[key] = out
             print(f"[ok] {key}  trace={out['trace_s']:.1f}s "
                   f"flops={out['flops']:.3e} bytes={out['bytes']:.3e} "
                   f"dominant={out['dominant']} args/card="
-                  f"{out['memory']['argument_bytes'] / 1e9:.2f}GB"
-                  + (f" peak={out['memory']['peak_bytes'] / 1e9:.2f}GB "
-                     f"fits={out['fits']}" if out["fits"] is not None
-                     else "")
+                  f"{out['memory']['argument_bytes'] / 1e9:.2f}GB "
+                  f"peak={out['memory']['peak_bytes'] / 1e9:.2f}GB "
+                  f"fits={out['fits']}"
                   + (" wire/card={:.3f}GB".format(
                       out["collective_wire_bytes"] / MESHES[m][0] / 1e9)
                      if out["collective_wire_bytes"] is not None else "")

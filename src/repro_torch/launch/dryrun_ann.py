@@ -12,10 +12,28 @@ reference's constants and ``SearchParams``:
   graph replicated on every card, 16 walkers along ``model``, hash
   visited sets (memory independent of N), queries split over ``data``.
 
-On the meta device (the default) each cell records the bytes one card
-holds: its shard or graph, its queries (1,024 over the 16 ``data`` rows)
-and its visited tables, from the tensors the port's search makes, on
-the meta device.  With ``--run`` one card's share is run on the card:
+On the meta device (the default) each cell runs as rank 0 of a counting
+group of 256 or 512 ranks (``ranks.init_counting_ranks``, in the dry
+run's spawned worker, ``launch.dryrun.counting_worker``) on
+``make_production_mesh(multi_pod, "meta", ranks=True)``: the walker cell
+``walker_sharded_search`` over the replicated 10M graph with the whole
+batch, the corpus cell ``corpus_sharded_search`` over this rank's block
+of the 16 shards (``local_shards``; ``pod`` holds replicas), both under
+``launch.op_profile.OpCounter``, where ``BACKEND``'s wrapper reports each
+launch as on a card (its bytes and FLOPs) and computes nothing.  A loop
+body counts once, as the reference reads it from the compiled module's
+text: the host-tested loops run one trip on the meta device
+(``core.bfis.loop_test``) and the search runs ``global_rounds=1``;
+``loop_trips`` holds the caps the trace stands for.  Each cell records
+the reference's keys (``hlo_flops`` by dtype, ``hlo_bytes`` and
+``collectives``, one card's count times ``chips``; the roofline terms;
+``compile_s``, the trace seconds), ``port_only_collectives`` (the port's
+final gather of every rank's answer over ``data``, which the reference's
+``out_specs`` leave split: also in ``collectives``) and ``memory``: the
+bytes one card holds of its shard or graph, its queries (the reference's
+1,024 over 16 ``data`` rows, and the whole batch the port passes every
+rank) and its visited tables, the trace's live peak, and the fit.  With
+``--run`` one card's share is run on the card:
 the corpus cell's one 48M-row shard on a (1, 1) mesh taking one data
 row's 64 queries, and the walker cell's 10M graph with 64 queries and
 16 walkers as a (1, 16) mesh of lanes (the work of one data row's 16
@@ -41,13 +59,17 @@ import torch
 
 from repro_torch.ann import SearchParams
 from repro_torch.core import visited as vs
-from repro_torch.core.distributed import (ShardedIndex, make_search_mesh,
+from repro_torch.core.distributed import (ShardedIndex,
+                                          corpus_sharded_search,
+                                          local_shards, make_search_mesh,
                                           walker_sharded_search)
 from repro_torch.core.graph import PaddedCSR
 from repro_torch.device import resolve_device
+from repro_torch.launch import dryrun
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.dryrun import tree_bytes
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.op_profile import OpCounter, tensor_bytes
 
 RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "../../../torch_ann_dryrun_results.json")
@@ -66,6 +88,9 @@ CFG = PARAMS.to_search_config("l2")
 # the corpus path searches each shard with one walker
 CORPUS_CFG = CFG.with_(m_max=1, num_walkers=1, staged=False)
 BACKEND = "rowgather"   # the kernel a card's share runs through
+# the caps a traced loop body stands for (the trace runs each once)
+LOOP_TRIPS = {"global_rounds": CFG.global_rounds,
+              "local_steps": CFG.local_steps, "max_steps": CFG.max_steps}
 CHECK = 8               # queries held to the ref backend
 FILL_ROWS = 1 << 22     # rows drawn at once
 
@@ -167,7 +192,8 @@ def per_card(kind: str, multi_pod: bool) -> Dict:
     share of the index (corpus: the shard axis over ``model``; walker:
     the whole graph, replicated), its queries (over ``data``) and its
     visited tables (a walker a card), built on the meta device."""
-    mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
+    mesh = make_production_mesh(multi_pod=multi_pod, device="meta",
+                                ranks=False)
     data, model = mesh.axis_size("data"), mesh.axis_size("model")
     q = make_queries(QUERIES, device="meta")
     rows = QUERIES // data
@@ -287,6 +313,112 @@ def run_share(kind: str, seed: int, profile: bool = True) -> Dict:
     return out
 
 
+def rank_search(kind: str, index, queries: torch.Tensor, mesh, cfg):
+    """Cell ``kind``'s search as this rank of ``mesh`` (over ranks) runs
+    it: the walker path over the replicated graph ``index``, or the corpus
+    path over this rank's block of the shards of ``index``.  Every rank
+    passes the whole batch."""
+    if kind == "corpus":
+        return corpus_sharded_search(local_shards(index, mesh), queries, cfg,
+                                     mesh, data_axis="data",
+                                     shard_axis="model")
+    return walker_sharded_search(index, queries, cfg, mesh,
+                                 data_axis="data", walker_axis="model")
+
+
+def trace_search(kind: str, index, queries: torch.Tensor, mesh, cfg):
+    """:func:`rank_search` under an :class:`OpCounter`: (counter, output,
+    seconds).  On the meta device a boolean-mask index (the hash visited
+    set's winning claims) takes every lane, the most it could write."""
+    import torch.fx.experimental._config as fx_config
+    t0 = time.perf_counter()
+    with fx_config.patch(meta_nonzero_assume_all_nonzero=True), \
+            OpCounter() as counter:
+        out = rank_search(kind, index, queries, mesh, cfg)
+    return counter, out, time.perf_counter() - t0
+
+
+def collective_keys(record) -> list:
+    """The collectives of an op record (``OpEntry.key``), in order."""
+    return [e.key() for e in record if rl.collective_kind(e.name)]
+
+
+def _port_only(record, out) -> Dict[str, int]:
+    """Per-kind bytes of the port's final gather of the answer over
+    ``data`` (``core.distributed._gather_rows``): the record's last
+    collectives, one all-gather a returned tensor, whose results are
+    those tensors."""
+    flat = [t for t in out if isinstance(t, torch.Tensor)] + [
+        t for part in out if not isinstance(part, torch.Tensor)
+        for t in part]
+    tail = [e for e in record if rl.collective_kind(e.name)][-len(flat):]
+    got = [rl.collective_bytes([e])["all-gather"] for e in tail]
+    want = [tensor_bytes(t) for t in flat]
+    if got != want:
+        raise AssertionError(f"the record's last collectives {got} are not "
+                             f"the gather of the answer's rows {want}")
+    return {"all-gather": sum(got)}
+
+
+def record_task(mesh_shape, rank_shape, n: int, b: int, cfg) -> list:
+    """The collectives (:func:`collective_keys`) of the walker search with
+    ``cfg`` over a ("data", "model") mesh of ``mesh_shape`` laid over
+    ``rank_shape`` ranks of the worker's counting group, on the meta
+    device: a graph of ``n`` nodes and ``b`` queries of the cells'
+    shapes."""
+    mesh = make_search_mesh(mesh_shape, ("data", "model"), device="meta",
+                            ranks=rank_shape)
+    counter, _, _ = trace_search("walker", make_graph(n, device="meta"),
+                                 make_queries(b, device="meta"), mesh, cfg)
+    return collective_keys(counter.record)
+
+
+def partition_cell(kind: str, multi_pod: bool) -> Dict:
+    """Cell ``kind`` on the production mesh as rank 0 of the counting group
+    (run in :func:`launch.dryrun.counting_worker`): the reference's keys,
+    ``loop_trips``, ``port_only_collectives`` and ``memory`` (see the
+    module's docstring)."""
+    mesh = make_production_mesh(multi_pod=multi_pod, device="meta",
+                                ranks=True)
+    base = per_card(kind, multi_pod)
+    chips = base["chips"]
+    q = make_queries(QUERIES, device="meta")
+    if kind == "corpus":
+        index = make_corpus(N_SHARD, SHARDS, device="meta")
+        held = local_shards(index, mesh)
+        cfg = CORPUS_CFG
+    else:
+        index = held = make_graph(N_WALKER_GRAPH, device="meta")
+        cfg = CFG
+    counter, out, seconds = trace_search(
+        kind, index, q, mesh, cfg.with_(dist_backend=BACKEND,
+                                        global_rounds=1))
+    mem = base["memory"]
+    index_bytes = sum(tensor_bytes(t) for t in held
+                      if isinstance(t, torch.Tensor))
+    if index_bytes != mem["index_bytes"]:
+        raise AssertionError(f"{kind}: the rank holds {index_bytes} B of "
+                             f"index, the count {mem['index_bytes']}")
+    fby = {k: v * chips for k, v in counter.flops_by_dtype().items()}
+    nbytes = float(counter.bytes()) * chips
+    coll = {k: v * chips for k, v in
+            rl.collective_bytes(counter.record).items()}
+    port_only = {k: v * chips for k, v in _port_only(counter.record,
+                                                      out).items()}
+    args = index_bytes + tensor_bytes(q)
+    peak = args + counter.peak_bytes
+    return dict(
+        base, status="ok", compile_s=seconds, ops=len(counter.record),
+        hlo_flops=float(sum(fby.values())), flops_by_dtype=fby,
+        hlo_bytes=nbytes, collectives=coll, port_only_collectives=port_only,
+        loop_trips=dict(LOOP_TRIPS), backend=BACKEND,
+        memory=dict(mem, query_bytes_passed=tensor_bytes(q),
+                    argument_bytes=args,
+                    trace_peak_bytes=counter.peak_bytes, peak_bytes=peak),
+        fits=peak <= rl.HBM_BYTES,
+        **rl.roofline_terms(fby, nbytes, coll, chips))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--run", action="store_true",
@@ -299,15 +431,22 @@ def main(argv=None) -> int:
     if os.path.exists(args.out):
         with open(args.out) as f:
             res = json.load(f)
-    for name, (kind, multi) in CELLS.items():
-        out = dict(per_card(kind, multi), status="ok",
-                   reason="counted on the meta device; no partitioner "
-                          "(ROADMAP.md §1 item 8, the dry run's partitioner)")
-        res[name] = out
-        m = out["memory"]
-        print(f"[ok] {name}  args/card={m['argument_bytes'] / 1e9:.3f} GB "
-              f"(index {m['index_bytes'] / 1e9:.3f}, queries "
-              f"{m['query_bytes']}, visited {m['visited_bytes']})")
+    futures = {name: dryrun.partition_worker(
+        "2x16x16" if multi else "16x16").submit(partition_cell, kind, multi)
+        for name, (kind, multi) in CELLS.items()}
+    for name, fut in futures.items():
+        out = res[name] = fut.result()
+        m, chips = out["memory"], out["chips"]
+        port = out["port_only_collectives"]["all-gather"] // chips
+        print(f"[ok] {name}  trace={out['compile_s']:.1f}s "
+              f"index/card={m['index_bytes'] / 1e9:.3f} GB peak/card="
+              f"{m['peak_bytes'] / 1e9:.3f} GB coll/card="
+              + json.dumps({k: v // chips for k, v in
+                            out["collectives"].items() if v})
+              + f" port-only={port} t_coll="
+              f"{out['t_collective_s'] * 1e3:.3f} ms "
+              f"dominant={out['dominant']}")
+    dryrun.close_workers()
     if args.run:
         for kind in ("corpus", "walker"):
             out = run_share(kind, args.seed)

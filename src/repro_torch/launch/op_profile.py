@@ -24,8 +24,9 @@ Conventions (a lower bound a kernel of this op cannot beat):
   scatter writes only as many elements as its source holds; a gather
   (``index``, ``index_select``, ``gather``, ``embedding``) reads the
   elements it returns and its indices, not its whole source; an
-  allocation (``empty*``) writes nothing, and ``zeros_like`` reads
-  nothing of its operand.
+  allocation (``empty*``) reads and writes nothing, and a fill made beside a
+  tensor (``zeros_like``, ``ones_like``, ``full_like``, ``new_zeros``,
+  ``new_ones``, ``new_full``) reads nothing of it.
 
 Live bytes follow storages, not tensors: a storage first made as an op's
 result counts from then until it is freed, however many views hold it,
@@ -50,7 +51,8 @@ cached, so a second trace in one process would not run it
 The port's CUDA kernel wrappers do not dispatch an aten op for their
 launch; each reports its own operands, bytes and FLOPs to the active
 counter (:data:`ACTIVE`, one ``None`` check when there is none) as an
-entry named ``kernel.<name>``.
+entry named ``kernel.<name>``, on the card and alike on the meta device,
+where they launch nothing: a meta record holds the kernels a card runs.
 
 :func:`profile` ranks a record as the reference's ``profile`` ranks HLO;
 :func:`device_profile` times a run on the card under ``torch.profiler``.
@@ -87,9 +89,11 @@ _OVERWRITE = {"copy_", "fill_", "zero_", "index_put_", "_index_put_impl_",
               "copy", "fill"}
 _ALLOC = {"empty", "empty_strided", "empty_like", "new_empty",
           "new_empty_strided"}
-# a fill that reads no element of its operand (its shape, dtype and device
-# alone); the gradient buffers' (train_step._zeros)
-_LIKE = {"zeros_like"}
+# fills that read no element of their operand (its shape, dtype and device
+# alone): the gradient buffers' (train_step._zeros), and ``new_*`` made
+# beside a tensor
+_LIKE = {"zeros_like", "ones_like", "full_like", "new_zeros", "new_ones",
+         "new_full"}
 # gathers read the rows they return (and their indices), not the source
 _GATHER = {"index", "_unsafe_index", "index_select", "gather", "embedding",
            "take"}
@@ -220,7 +224,8 @@ def _op(func) -> _Op:
             str(func), op, func.is_view,
             c10d or any(a.alias_info is not None and a.alias_info.is_write
                         for a in func._schema.arguments),
-            1 if op in _OVERWRITE or op in _SCATTER or op in _LIKE else 0,
+            1 if (op in _OVERWRITE or op in _SCATTER or op in _LIKE
+                  or op in _ALLOC) else 0,
             op in _ALLOC,
             op in _GATHER, op in _SCATTER, c10d)
     return info

@@ -101,8 +101,12 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
                           mask.to_local() if is_dtensor(mask) else mask,
                           cfg), q)
     qs = (q.float() / (d ** 0.5)).to(q.dtype)
+    # a decode step over a cache whose sequence is split over ranks: q
+    # whole on those ranks (its kv heads not split where the sequence is;
+    # one token of q moves, no slot of the cache)
     qg = shard_split(qs, (b, sq, hkv, groups, d), "batch", "seq",
-                     "kv_heads", None, None)
+                     "kv_heads", None, None,
+                     whole_on=_seq_split(k))
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
     # mask (B?, 1, Sq, Sk) -> (B?, 1, 1, Sq, Sk) for the group axis
     scores = torch.where(replicated(mask, scores)[:, :, None, :, :], scores,
@@ -113,6 +117,14 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
                        v.float())
     return shard_merge(out, (b, sq, hq, d), "batch", "seq", "kv_heads", None,
                        None).to(q.dtype)
+
+
+def _seq_split(k):
+    """Per mesh dim, whether it splits the DTensor ``k``'s sequence (dim
+    1); None when none does (or ``k`` is a plain tensor)."""
+    if not sharded_dim(k, 1):
+        return None
+    return tuple(p.is_shard(1) for p in k.placements)
 
 
 def _split_softmax(scores):

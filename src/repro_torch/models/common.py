@@ -13,7 +13,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.sharding import arange_like, replicated, sharded_dim
+from repro_torch.sharding import (arange_like, is_dtensor, like, replicated,
+                                  shard, sharded_dim, unshard, vocab_lookup)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -176,3 +177,41 @@ def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
     dim = torch.arange(d // 2, dtype=torch.float32, device=dev)[None, :]
     ang = pos / (10000.0 ** (2 * dim / d))
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# token embedding, logits and positions of the LM families
+# ---------------------------------------------------------------------------
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """The rows of ``table`` (V, d) for ``tokens``, in ``dtype``, at the
+    reference's constraint; over ranks the table FSDP-gathered and looked
+    up on each rank's own rows (``sharding.vocab_lookup``)."""
+    if is_dtensor(table):
+        x = vocab_lookup(unshard(table, "pod", "data"), tokens)
+    else:
+        x = table[tokens.long()]
+    return shard(x.to(dtype), "batch", "seq", "embed")
+
+
+def lm_logits(head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` against the output head (d, V) (a tied embedding's ``.T``),
+    at the reference's constraint (the vocab split over ``model`` where it
+    divides)."""
+    return shard(x @ head.to(x.dtype), "batch", "seq", "vocab")
+
+
+def prompt_end(b: int, s: int, x: torch.Tensor) -> torch.Tensor:
+    """(b,) int32 positions ``s`` after a prompt, laid out as ``x``'s
+    rows."""
+    return shard(replicated(torch.full((b,), s, dtype=torch.int32,
+                                       device=x.device), x), "batch")
+
+
+def token_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions 0..S-1, laid out as ``tokens`` (a DTensor's own
+    rows on each rank)."""
+    local = tokens.to_local() if is_dtensor(tokens) else tokens
+    b, s = local.shape
+    return like(torch.arange(s, device=local.device)[None].expand(b, s),
+                tokens)

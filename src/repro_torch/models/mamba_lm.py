@@ -16,11 +16,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import FAMILY_SSM, ModelConfig
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (cross_entropy, dtype_of, normal_init,
-                                       pdtype_of, rmsnorm, rmsnorm_init)
+from repro_torch.models.common import (cross_entropy, dtype_of, embed,
+                                       lm_logits, normal_init, pdtype_of,
+                                       prompt_end, rmsnorm, rmsnorm_init)
 from repro_torch.models.params import (TreeModel, check_stacked,
                                        draw_stacked, layer_list, params_tree,
                                        set_tree)
+from repro_torch.sharding import remat_context
 
 
 class SSMDecodeState(NamedTuple):
@@ -71,11 +73,11 @@ class MambaLM(TreeModel):
         return tree, layer_list(tree, "layers")
 
     def _embed(self, tree, tokens: torch.Tensor) -> torch.Tensor:
-        return tree["embedding"][tokens.long()].to(dtype_of(self.cfg))
+        return embed(tree["embedding"], tokens, dtype_of(self.cfg))
 
     def _logits(self, tree, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(tree["final_norm"], x, self.cfg.norm_eps)
-        return x @ tree["embedding"].T.to(x.dtype)
+        return lm_logits(tree["embedding"].T, x)
 
     def _layer(self, lp, x, return_state: bool):
         h = rmsnorm(lp["norm"], x, self.cfg.norm_eps)
@@ -106,7 +108,8 @@ class MambaLM(TreeModel):
             if remat:
                 # the layers draw no random numbers: no RNG state to keep
                 x = checkpoint(self._train_layer, lp, x, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               context_fn=remat_context)
             else:
                 x, st = self._layer(lp, x, collect_state)
                 if collect_state:
@@ -131,8 +134,7 @@ class MambaLM(TreeModel):
         b, s = tokens.shape
         x, states = self._run(tree, layers, tokens, False, True)
         return self._logits(tree, x[:, -1:]), SSMDecodeState(
-            states=states, pos=torch.full((b,), s, dtype=torch.int32,
-                                          device=x.device))
+            states=states, pos=prompt_end(b, s, x))
 
     def init_decode_state(self, batch: int, s_max: int = 0
                           ) -> SSMDecodeState:
@@ -166,3 +168,4 @@ class MambaLM(TreeModel):
             x = x + y
         return self._logits(tree, x), SSMDecodeState(
             states=ssm_mod.SSMState(conv, ssm), pos=state.pos + 1)
+

@@ -17,6 +17,13 @@ promotes them.  The reference repeats B and C from groups to heads; here
 the products read each group once and broadcast it over its heads, which
 are the same numbers.  ``ssd_scan_ref`` is the naive sequential oracle;
 ``mamba2_step`` is the O(1) decode update sharing the same parameters.
+
+Over ranks (DTensors placed by the dry run's partitioner) the block takes
+the reference's constraint on its output and cuts in_proj's output into
+z, xBC and dt, and the conv's output into x, B and C, by one all-to-all
+each (``sharding.split_last``); the conv, the SSD scan and the decode
+recurrence run on each rank's own rows, heads and channels and send
+nothing; on plain tensors every step is the one-device path.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.common import gated_rmsnorm, normal_init
+from repro_torch.sharding import (is_dtensor, like, local, shard,
+                                  shard_merge, shard_split, split_last)
 
 
 class SSMState(NamedTuple):
@@ -124,7 +133,20 @@ def ssd_chunked(
     h0: Optional[torch.Tensor] = None,   # (B, H, P, N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD. Returns (y (B,T,H,P), final state (B,H,P,N)), both
-    float32."""
+    float32.  Over ranks (DTensors: the batch split over data ranks, heads
+    over model ranks, B and C whole along the heads' ranks) each rank runs
+    it on its own blocks and nothing is sent: the scan is independent per
+    row and head."""
+    if is_dtensor(xdt):
+        ops = [(a_dt, 2), (bmat, None), (cmat, None)]
+        if h0 is not None:
+            ops.append((h0, 1))
+        _check_local(xdt, 2, ops, bmat.shape[2])
+        y, st = ssd_chunked(*(local(t, xdt) for t in (xdt, a_dt, bmat,
+                                                       cmat)), chunk,
+                            None if h0 is None else local(h0, xdt))
+        return like(y, xdt), like(st, xdt, _moved(xdt.placements,
+                                                  {2: 1}))
     b, t, h, p = xdt.shape
     g, n = bmat.shape[2], bmat.shape[3]
     if t % chunk:
@@ -185,18 +207,27 @@ def ssd_scan_ref(xdt, a_dt, bmat, cmat, h0=None):
 
 
 def _split_proj(p, x: torch.Tensor, cfg: ModelConfig):
+    """z (..., d_in), xBC (..., conv_ch) and dt (..., H) of ``in_proj``'s
+    output.  Over ranks each is split over ``model`` on its own
+    (``sharding.split_last``: the blocks of in_proj's output on the model
+    ranks do not end where the three pieces do)."""
     s, d_in, nheads, conv_ch = _dims(cfg)
     z_xbc_dt = x @ p["in_proj"].to(x.dtype)
-    z = z_xbc_dt[..., :d_in]
-    xbc = z_xbc_dt[..., d_in:d_in + conv_ch]
-    dt = z_xbc_dt[..., d_in + conv_ch:]
-    return z, xbc, dt
+    lead = ("batch", "seq")[:x.ndim - 1]
+    return split_last(z_xbc_dt, (d_in, conv_ch, nheads), lead,
+                      ("mlp", "mlp", "heads"))
 
 
 def _conv_full(p, xbc: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over (B, T, C) with static width: the
     ``width`` shifted products summed from 0 in the order i = 0..W−1, as
-    the reference's ``sum``."""
+    the reference's ``sum``.  Over ranks each rank convolves its own rows
+    and channels (the conv weights split as the channels are); nothing is
+    sent."""
+    if is_dtensor(xbc):
+        return like(_conv_full({k: local(p[k], xbc)
+                                for k in ("conv_w", "conv_b")},
+                               xbc.to_local()), xbc)
     w = p["conv_w"].float()                               # (W, C)
     width = w.shape[0]
     x = xbc.float()
@@ -206,13 +237,51 @@ def _conv_full(p, xbc: torch.Tensor) -> torch.Tensor:
 
 
 def _heads(xbc: torch.Tensor, cfg: ModelConfig):
-    """x (..., H, P), B and C (..., G, N) of the conv's output."""
+    """x (..., H, P), B and C (..., G, N) of the conv's output: over
+    ranks x split over ``model`` by heads, B and C whole along it."""
     s, d_in, nheads, _ = _dims(cfg)
     gn = s.ngroups * s.state_dim
-    lead = xbc.shape[:-1]
-    return (xbc[..., :d_in].reshape(*lead, nheads, s.head_dim),
-            xbc[..., d_in:d_in + gn].reshape(*lead, s.ngroups, s.state_dim),
-            xbc[..., d_in + gn:].reshape(*lead, s.ngroups, s.state_dim))
+    lead = tuple(xbc.shape[:-1])
+    names = ("batch", "seq")[:len(lead)]
+    xs, bmat, cmat = split_last(xbc, (d_in, gn, gn), names,
+                                ("heads", None, None))
+    return (shard_split(xs, lead + (nheads, s.head_dim), *names, "heads",
+                        None),
+            shard_split(bmat, lead + (s.ngroups, s.state_dim), *names, None,
+                        None),
+            shard_split(cmat, lead + (s.ngroups, s.state_dim), *names, None,
+                        None))
+
+
+def _check_local(xh, head_dim: int, others, ngroups: int) -> None:
+    """The SSM's operands over ranks, for a run on each rank's own blocks:
+    ``xh`` split over each mesh dim by the batch (dim 0), by heads (dim
+    ``head_dim``) or not at all, and each of ``others`` ((tensor, its
+    heads dim or None) pairs; None for B and C, whose one group every
+    rank reads whole) placed alike; no partial sums."""
+    from torch.distributed.tensor import Replicate, Shard
+    for m, p in enumerate(xh.placements):
+        if not (p == Replicate() or p.is_shard(0) or p.is_shard(head_dim)):
+            raise ValueError(f"the SSM's x is placed {xh.placements}")
+        if p.is_shard(head_dim) and ngroups != 1:
+            raise NotImplementedError("heads split over ranks with several "
+                                      "B/C groups")
+        for t, hd in others:
+            want = (Shard(0) if p.is_shard(0) else
+                    Shard(hd) if p.is_shard(head_dim) and hd is not None
+                    else Replicate())
+            if not is_dtensor(t) or t.device_mesh != xh.device_mesh \
+                    or t.placements[m] != want:
+                raise ValueError(f"the SSM's operands are not placed alike "
+                                 f"on mesh dim {m} (x: {xh.placements})")
+
+
+def _moved(placements, dims):
+    """``placements`` with each ``Shard(i)`` of ``dims`` (i -> j) moved to
+    ``Shard(j)``."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                 else p for p in placements)
 
 
 def mamba2_forward(
@@ -235,17 +304,18 @@ def mamba2_forward(
     h0 = state.ssm if state is not None else None
     y, hfinal = ssd_chunked(xdt, a_dt, bmat, cmat, chunk, h0=h0)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(b, t, d_in).to(x.dtype)
+    y = shard_merge(y, (b, t, d_in), "batch", "seq", "heads",
+                    None).to(x.dtype)
     y = gated_rmsnorm(p["ssm_norm"], y, z, cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = shard(y @ p["out_proj"].to(x.dtype), "batch", "seq", "embed")
     if not return_state:
         return out, None
     # keep the last W-1 raw (pre-conv) xbc inputs for decode continuation
-    conv_tail = torch.zeros((b, s.conv_width - 1, conv_ch), dtype=x.dtype,
-                            device=x.device)
+    # (xbc_raw is in x's dtype; over ranks each rank its own channels)
     take = min(s.conv_width - 1, t)
-    conv_tail[:, conv_tail.shape[1] - take:] = xbc_raw[:, t - take:].to(
-        x.dtype)
+    conv_tail = torch.cat([xbc_raw.new_zeros(
+        (b, s.conv_width - 1 - take, conv_ch)), xbc_raw[:, t - take:]],
+        dim=1)
     return out, SSMState(conv=conv_tail, ssm=hfinal)
 
 
@@ -260,26 +330,41 @@ def mamba2_step(
     b = x.shape[0]
     z, xbc, dt = _split_proj(p, x, cfg)                   # (B,1,·)
     window = torch.cat([state.conv, xbc.to(state.conv.dtype)], dim=1)
-    w = p["conv_w"].float()
-    # the window contracted with the conv weights in one product
-    conv_out = torch.einsum("bwc,wc->bc", window.float(), w)
+    # the window contracted with the conv weights in one product (over
+    # ranks on each rank's own rows and channels)
+    conv_out = like(torch.einsum("bwc,wc->bc", local(window, window).float(),
+                                 local(p["conv_w"], window).float()),
+                    window, _moved(getattr(window, "placements", ()),
+                                   {2: 1}))
     xbc1 = F.silu(conv_out + p["conv_b"].float())
     xh, bvec, cvec = _heads(xbc1, cfg)
-    rep = nheads // s.ngroups
-    bh = torch.repeat_interleave(bvec, rep, dim=1)        # (B, H, N)
-    ch = torch.repeat_interleave(cvec, rep, dim=1)
     dt1 = _softplus(dt[:, 0].float() + p["dt_bias"].float())   # (B,H)
     a = -torch.exp(p["A_log"].float())
+    if is_dtensor(xh):  # over ranks: each rank its own rows and heads
+        _check_local(xh, 1, [(dt1, 1), (state.ssm, 1), (bvec, None),
+                             (cvec, None)], s.ngroups)
+    y, h_new = _step_update(*(local(t, xh) for t in (
+        xh, dt1, a, p["D"], state.ssm, bvec, cvec)))
+    y, h_new = like(y, xh), like(h_new, state.ssm)
+    y = shard_merge(y, (b, d_in), "batch", "heads", None)[:, None]
+    y = gated_rmsnorm(p["ssm_norm"], y.to(x.dtype), z, cfg.norm_eps)
+    out = shard(y @ p["out_proj"].to(x.dtype), "batch", "seq", "embed")
+    return out, SSMState(conv=window[:, 1:], ssm=h_new)
+
+
+def _step_update(xh, dt1, a, d, ssm, bvec, cvec):
+    """The recurrence of one decode step: (y (B, H, P), h' (B, H, P, N))
+    from x (B, H, P), dt (B, H), A and D (H,), h (B, H, P, N) and B, C
+    (B, G, N) repeated from groups to heads."""
+    rep = xh.shape[1] // bvec.shape[1]
+    bh = torch.repeat_interleave(bvec, rep, dim=1)        # (B, H, N)
+    ch = torch.repeat_interleave(cvec, rep, dim=1)
     xh = xh.float()
     da = torch.exp(dt1 * a[None, :])                      # (B,H)
-    h_new = (state.ssm * da[..., None, None]
+    h_new = (ssm * da[..., None, None]
              + (xh * dt1[..., None])[..., None] * bh[:, :, None, :])
     y = (h_new @ ch[..., None])[..., 0]                   # (B, H, P)
-    y = y + p["D"].float()[None, :, None] * xh
-    y = y.reshape(b, 1, d_in).to(x.dtype)
-    y = gated_rmsnorm(p["ssm_norm"], y, z, cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
-    return out, SSMState(conv=window[:, 1:], ssm=h_new)
+    return y + d.float()[None, :, None] * xh, h_new
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

@@ -35,14 +35,15 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import moe_a2a
-from repro_torch.models.common import (cross_entropy, dtype_of,
-                                       mrope_angles, normal_init, pdtype_of,
-                                       rmsnorm, rmsnorm_init, rope_angles)
+from repro_torch.models.common import (cross_entropy, dtype_of, embed,
+                                       lm_logits, mrope_angles, normal_init,
+                                       pdtype_of, prompt_end, rmsnorm,
+                                       rmsnorm_init, rope_angles,
+                                       token_positions)
 from repro_torch.models.params import (TreeModel, check_stacked,
                                        draw_stacked, frozen, layer_list,
                                        params_tree)
-from repro_torch.sharding import (is_dtensor, like, replicated, shard,
-                                  unshard, vocab_lookup)
+from repro_torch.sharding import remat_context
 
 
 class DecodeState(NamedTuple):
@@ -152,17 +153,11 @@ class CausalLM(TreeModel):
         return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        if is_dtensor(params.embedding):
-            x = vocab_lookup(unshard(params.embedding, "pod", "data"),
-                             tokens)
-        else:
-            x = params.embedding[tokens.long()]
-        return shard(x.to(dtype_of(self.cfg)), "batch", "seq", "embed")
+        return embed(params.embedding, tokens, dtype_of(self.cfg))
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        head = (params.embedding.T if self.cfg.tie_embeddings
-                else params.lm_head)
-        return shard(x @ head.to(x.dtype), "batch", "seq", "vocab")
+        return lm_logits(params.embedding.T if self.cfg.tie_embeddings
+                         else params.lm_head, x)
 
     def _layer_apply(self, p, x, rope, mode, cache, pos):
         cfg = self.cfg
@@ -181,15 +176,6 @@ class CausalLM(TreeModel):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + f, new_cache, aux
 
-    @staticmethod
-    def _positions(tokens: torch.Tensor) -> torch.Tensor:
-        """(B, S) positions 0..S-1, laid out as ``tokens`` (a DTensor's
-        own rows on each rank)."""
-        local = tokens.to_local() if is_dtensor(tokens) else tokens
-        b, s = local.shape
-        return like(torch.arange(s, device=local.device)[None].expand(b, s),
-                    tokens)
-
     def _train_layer(self, lp, x, rope):
         x, _, aux = self._layer_apply(lp, x, rope, "train", None, None)
         return x, aux
@@ -207,7 +193,7 @@ class CausalLM(TreeModel):
         x = inputs_embeds if inputs_embeds is not None else self._embed(
             params, tokens)
         if positions is None:
-            positions = self._positions(tokens)
+            positions = token_positions(tokens)
         rope = self._rope(positions)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = remat and torch.is_grad_enabled()
@@ -216,7 +202,8 @@ class CausalLM(TreeModel):
                 # the layers draw no random numbers: no RNG state to keep
                 x, a = checkpoint(self._train_layer, lp, x, rope,
                                   use_reentrant=False,
-                                  preserve_rng_state=False)
+                                  preserve_rng_state=False,
+                                  context_fn=remat_context)
             else:
                 x, a = self._train_layer(lp, x, rope)
             aux = aux + a
@@ -254,7 +241,7 @@ class CausalLM(TreeModel):
         x = inputs_embeds if inputs_embeds is not None else self._embed(
             params, tokens)
         if positions is None:
-            positions = self._positions(tokens)
+            positions = token_positions(tokens)
         rope = self._rope(positions)
         empty = attn.init_cache(cfg, b, s_max, cfg.num_kv_heads,
                                 dtype_of(cfg), device=x.device)
@@ -268,8 +255,7 @@ class CausalLM(TreeModel):
         logits = self._logits(params, x[:, -1:, :])
         return logits, DecodeState(
             caches=attn.KVCache(k=torch.stack(ks), v=torch.stack(vs)),
-            pos=shard(replicated(torch.full((b,), s, dtype=torch.int32,
-                                            device=x.device), x), "batch"))
+            pos=prompt_end(b, s, x))
 
     def decode_step(self, params, state: DecodeState, token: torch.Tensor,
                     inplace: bool = False

@@ -12,7 +12,10 @@ per-layer cross-attention K/V from the encoder output once, at prefill.
 and ``dec_layers`` (each leaf stacked on a leading layer axis),
 ``enc_norm`` and ``dec_norm``.  Its methods take ``params`` first, as
 ``CausalLM``'s do (the module, the reference's tree, or training's
-per-layer views), and run the layers in a Python loop.
+per-layer views), and run the layers in a Python loop.  Over ranks (the
+dry run's partitioner) the reference's constraint points stand at the
+encoder's and the decoder's inputs and at the logits; 20 heads do not
+split 16 ways, so each model rank attends every head of its rows.
 """
 from __future__ import annotations
 
@@ -24,12 +27,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import FAMILY_ENCDEC, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (cross_entropy, dtype_of, layernorm,
-                                       layernorm_init, normal_init,
-                                       pdtype_of, sinusoidal_positions)
+from repro_torch.models.common import (cross_entropy, dtype_of, embed,
+                                       layernorm, layernorm_init, lm_logits,
+                                       normal_init, pdtype_of, prompt_end,
+                                       sinusoidal_positions)
 from repro_torch.models.params import (TreeModel, check_stacked,
                                        draw_stacked, layer_list, params_tree,
                                        set_tree)
+from repro_torch.sharding import (remat_context, replicated, shard, unshard,
+                                  whole)
 
 
 class WhisperDecodeState(NamedTuple):
@@ -104,13 +110,15 @@ class WhisperModel(TreeModel):
                 layer_list(tree, "dec_layers"))
 
     def _embed(self, tree, tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings plus the learned positions 0..S-1."""
-        x = tree["embedding"][tokens.long()].to(dtype_of(self.cfg))
-        return x + tree["pos_embedding"][:tokens.shape[1]].to(x.dtype)[None]
+        """Token embeddings plus the learned positions 0..S-1 (over ranks
+        the slice of the FSDP-split table gathered over ``data``)."""
+        x = embed(tree["embedding"], tokens, dtype_of(self.cfg))
+        pe = unshard(tree["pos_embedding"][:tokens.shape[1]], "pod", "data")
+        return shard(x + pe.to(x.dtype)[None], "batch", "seq", "embed")
 
     def _logits(self, tree, x: torch.Tensor) -> torch.Tensor:
         x = layernorm(tree["dec_norm"], x, self.cfg.norm_eps)
-        return x @ tree["embedding"].T.to(x.dtype)
+        return lm_logits(tree["embedding"].T, x)
 
     # -- encoder --------------------------------------------------------------
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
@@ -121,8 +129,9 @@ class WhisperModel(TreeModel):
     def _encode(self, tree, enc_layers, frames):
         cfg = self.cfg
         x = frames.to(dtype_of(cfg))
-        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                     x.device).to(x.dtype)[None]
+        pos = sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
+        x = shard(x + replicated(pos.to(x.dtype), x)[None], "batch",
+                  "frames", "embed")
         for lp in enc_layers:
             h = layernorm(lp["attn_norm"], x, cfg.norm_eps)
             a, _ = attn.attend(lp["attn"], h, cfg, rope=None, mode="train",
@@ -164,7 +173,8 @@ class WhisperModel(TreeModel):
                 # the layers draw no random numbers: no RNG state to keep
                 x = checkpoint(self._train_layer, lp, x, enc,
                                use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               context_fn=remat_context)
             else:
                 x = self._train_layer(lp, x, enc)
         return self._logits(tree, x)
@@ -203,7 +213,7 @@ class WhisperModel(TreeModel):
         return logits, WhisperDecodeState(
             self_caches=attn.KVCache(k=torch.stack(ks), v=torch.stack(vs)),
             cross_k=torch.stack(cks), cross_v=torch.stack(cvs),
-            pos=torch.full((b,), s, dtype=torch.int32, device=x.device))
+            pos=prompt_end(b, s, x))
 
     def init_decode_state(self, batch: int, s_max: int) -> WhisperDecodeState:
         cfg = self.cfg
@@ -229,12 +239,15 @@ class WhisperModel(TreeModel):
         instead, and the returned state shares them."""
         cfg = self.cfg
         tree, _, dec_layers = self._parts(params)
-        x = tree["embedding"][token.long()].to(dtype_of(cfg))
+        x = embed(tree["embedding"], token, dtype_of(cfg))
         pe = tree["pos_embedding"]
         # row 0's position on the device (no host sync), clamped as the
-        # reference's gather clamps an index past the table
-        row0 = state.pos[:1].long().clamp(max=pe.shape[0] - 1)
-        x = x + pe[row0].to(x.dtype)[None]
+        # reference's gather clamps an index past the table; over ranks
+        # the positions are gathered and the row read on every rank
+        row0 = whole(state.pos)[:1].long().clamp(max=pe.shape[0] - 1)
+        row = unshard(torch.index_select(pe, 0, replicated(row0, pe)), "pod",
+                      "data")
+        x = shard(x + row.to(x.dtype)[None], "batch", "seq", "embed")
         ck, cv = state.self_caches
         if not inplace:
             ck, cv = ck.clone(), cv.clone()

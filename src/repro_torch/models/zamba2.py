@@ -14,7 +14,10 @@ its own KV cache.
 ``embedding`` (also the tied head), ``grouped`` (mamba leaves (G, E, ...)),
 ``tail`` (leaves (max(tail, 1), ...): one unused layer when there is no
 tail, as in the reference), ``shared`` and ``final_norm``.  The groups and
-layers run in Python loops.
+layers run in Python loops.  Over ranks (the dry run's partitioner) the
+reference's constraint points stand (the embedding, the gelu, the
+logits), and the shared block's two row-parallel products are reduced at
+an ``embed`` constraint of the port's, as the mamba block's output is.
 """
 from __future__ import annotations
 
@@ -28,12 +31,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import FAMILY_HYBRID, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (cross_entropy, dtype_of, normal_init,
-                                       pdtype_of, rmsnorm, rmsnorm_init,
-                                       rope_angles)
+from repro_torch.models.common import (cross_entropy, dtype_of, embed,
+                                       lm_logits, normal_init, pdtype_of,
+                                       prompt_end, rmsnorm, rmsnorm_init,
+                                       rope_angles, token_positions)
 from repro_torch.models.params import (TreeModel, check_stacked,
                                        draw_stacked, layer_list, params_tree,
                                        set_tree)
+from repro_torch.sharding import remat_context, shard
 
 
 class HybridDecodeState(NamedTuple):
@@ -123,11 +128,11 @@ class Zamba2Model(TreeModel):
                 layer_list(tree, "tail"))
 
     def _embed(self, tree, tokens: torch.Tensor) -> torch.Tensor:
-        return tree["embedding"][tokens.long()].to(dtype_of(self.cfg))
+        return embed(tree["embedding"], tokens, dtype_of(self.cfg))
 
     def _logits(self, tree, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(tree["final_norm"], x, self.cfg.norm_eps)
-        return x @ tree["embedding"].T.to(x.dtype)
+        return lm_logits(tree["embedding"].T, x)
 
     def _shared_block(self, sp, x, x0, rope, mode, cache, pos):
         """Shared transformer block over concat(hidden, embedding) -> d."""
@@ -140,9 +145,13 @@ class Zamba2Model(TreeModel):
         h = rmsnorm(sp["ffn_norm"], y, eps)
         f = h @ sp["fc1"].to(h.dtype)
         # jax.nn.gelu defaults to the tanh approximation
-        f = F.gelu(f.float(), approximate="tanh").to(h.dtype)
-        y = y + f @ sp["fc2"].to(h.dtype)
-        out = y @ sp["out_proj"].to(y.dtype)
+        f = shard(F.gelu(f.float(), approximate="tanh").to(h.dtype),
+                  "batch", "seq", "mlp")
+        # the row-parallel products' partial sums reduced once, where the
+        # mamba block's and attention's are (over ranks; the reference
+        # leaves the two to its partitioner)
+        y = y + shard(f @ sp["fc2"].to(h.dtype), "batch", "seq", "embed")
+        out = shard(y @ sp["out_proj"].to(y.dtype), "batch", "seq", "embed")
         return x + out, new_cache
 
     def _mamba(self, lp, x, mode, state=None):
@@ -188,8 +197,8 @@ class Zamba2Model(TreeModel):
         b, s = tokens.shape
         x = self._embed(tree, tokens)
         x0 = x
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        rope = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+        rope = rope_angles(token_positions(tokens),
+                           cfg.resolved_head_dim, cfg.rope_theta)
         mode = "prefill" if collect_state else "train"
         empty = (attn.init_cache(self.attn_cfg, b, s_max, cfg.num_kv_heads,
                                  dtype_of(cfg), device=x.device)
@@ -201,7 +210,8 @@ class Zamba2Model(TreeModel):
                 # the layers draw no random numbers: no RNG state to keep
                 x = checkpoint(self._train_group, gp, tree["shared"], x, x0,
                                rope, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               context_fn=remat_context)
                 continue
             x, states, cache = self._group(gp, tree["shared"], x, x0, rope,
                                            mode, empty)
@@ -241,7 +251,7 @@ class Zamba2Model(TreeModel):
                                               False, True, s_max)
         return self._logits(tree, x[:, -1:]), HybridDecodeState(
             ssm_grouped=ssm_g, ssm_tail=ssm_t, attn_caches=caches,
-            pos=torch.full((b,), s, dtype=torch.int32, device=x.device))
+            pos=prompt_end(b, s, x))
 
     def init_decode_state(self, batch: int, s_max: int) -> HybridDecodeState:
         cfg = self.cfg

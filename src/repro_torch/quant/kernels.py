@@ -210,11 +210,13 @@ def int8dist_rowgather(codes: torch.Tensor, scales: torch.Tensor,
     qc, qs, q2 = query_side(queries, qmeta)
     out = torch.empty(ids.shape, dtype=torch.float32, device=codes.device)
     if out.numel():
-        plan = rowgather_int8_plan(ids.shape[0], ids.shape[1],
-                                   codes.shape[1])
         if op_profile.ACTIVE is not None:
             op_profile.report_gather("int8dist_rowgather", codes, ids,
                                      queries, out, 4, "int8", pair_bytes=4)
+        if _cuda.traced(out):
+            return out
+        plan = rowgather_int8_plan(ids.shape[0], ids.shape[1],
+                                   codes.shape[1])
         _cuda.launch("rowgather_int8", "int8dist_rowgather",
                      codes, codes.shape[0], codes.shape[1], scales, ids,
                      ids.shape[0], ids.shape[1], qc, qs, q2, out,

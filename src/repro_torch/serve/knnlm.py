@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.ann import AnnIndex, IndexSpec, SearchParams
 from repro_torch.core.config import SearchConfig
-from repro_torch.models.common import rmsnorm
+from repro_torch.models.common import rmsnorm, token_positions
 from repro_torch.models.transformer import as_layers
 from repro_torch.serve.engine import as_tokens
 
@@ -79,7 +79,7 @@ def _final_hidden(model, params, tokens):
     if hasattr(model, "_rope"):   # CausalLM
         params = as_layers(params)
         x = params.embedding[tokens.long()].to(torch.bfloat16)
-        rope = model._rope(model._positions(tokens))
+        rope = model._rope(token_positions(tokens))
         for lp in params.layers:
             x, _, _ = model._layer_apply(lp, x, rope, "train", None, None)
         return rmsnorm(params.final_norm, x, cfg.norm_eps)

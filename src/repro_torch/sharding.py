@@ -23,8 +23,9 @@ its input.  :func:`shard_split` and :func:`shard_merge` are the
 constraints around a reshape that splits or merges a sharded dim, and
 the helpers below them (:func:`unshard`, :func:`repeat_heads`,
 :func:`vocab_lookup`, :func:`arange_like`, :func:`replicated`,
-:func:`like`) take the places where DTensor has no rule of its own, or
-one that would gather more than XLA does.  ``use_rules``'s mesh is what
+:func:`like`, :func:`local`, :func:`split_last`) take the places where
+DTensor has no rule of its own, or one that would gather more than XLA
+does.  ``use_rules``'s mesh is what
 ``models.moe_a2a.moe_ffn_sharded`` splits its positions by (lanes of one
 device, or ranks).  :func:`param_shardings` is
 the reference's ``NamedSharding`` tree on a mesh laid over ranks: each
@@ -41,7 +42,7 @@ import contextvars
 import dataclasses
 import math
 import re
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -117,6 +118,15 @@ def use_mesh(mesh):
         yield
     finally:
         _active_mesh.reset(token)
+
+
+def remat_context():
+    """``context_fn`` for ``torch.utils.checkpoint``: the forward runs as it
+    is, the recompute under the rules and mesh active at the forward (the
+    autograd engine may run the recompute on a thread of its own, where
+    the context variables are unset)."""
+    return contextlib.nullcontext(), use_rules(
+        _active_rules.get(), _active_mesh.get(), _active_act_rules.get())
 
 
 def current_mesh():
@@ -223,15 +233,16 @@ def _constrain(x, placements, back=None):
                             placements if back is None else back)
 
 
-def shard_split(x, shape, *logical: Optional[str]):
+def shard_split(x, shape, *logical: Optional[str], whole_on=None):
     """``shard(x.reshape(shape), *logical)``, where the reshape splits one
     dim i of ``x`` into several and ``logical`` (the result's axes) shards
     no dim past i, so each sharded dim keeps its index.  On a DTensor of
     the active mesh over ranks, ``x`` takes the result's placements
     before the reshape and the gradient after it, so neither view splits
     a dim unevenly (which DTensor refuses); elsewhere it is
-    ``x.reshape``."""
-    return _reshaped(x, shape, shape, logical)
+    ``x.reshape``.  ``whole_on`` (a flag a mesh dim) keeps the result
+    whole on the flagged mesh dims."""
+    return _reshaped(x, shape, shape, logical, whole_on)
 
 
 def shard_merge(x, shape, *logical: Optional[str]):
@@ -244,7 +255,7 @@ def shard_merge(x, shape, *logical: Optional[str]):
     return _reshaped(x, shape, tuple(x.shape), logical)
 
 
-def _reshaped(x, shape, spec_shape, logical):
+def _reshaped(x, shape, spec_shape, logical, whole_on=None):
     mesh = rank_mesh()
     if mesh is None or not is_dtensor(x) \
             or x.device_mesh != mesh.device_mesh:
@@ -252,6 +263,10 @@ def _reshaped(x, shape, spec_shape, logical):
     spec = resolve_spec(tuple(spec_shape), logical, mesh,
                         _active_act_rules.get())
     placements = _placements(spec, mesh.axis_names)
+    if whole_on is not None:
+        from torch.distributed.tensor import Replicate
+        placements = tuple(Replicate() if w else p
+                           for p, w in zip(placements, whole_on))
     return _canonical(_constrain(_constrain(x, placements).reshape(shape),
                                  placements))
 
@@ -450,15 +465,176 @@ def replicated(t, ref):
                               run_check=False)
 
 
-def like(local, ref):
+def like(local, ref, placements=None):
     """``local``, this rank's block of a tensor laid out as ``ref`` (the
-    same placements, and the sharded dims of ``ref`` sized as its local
-    part), as a DTensor when ``ref`` is one, else ``local`` itself."""
+    same placements, or ``placements`` on ``ref``'s mesh, and the sharded
+    dims sized as its local part), as a DTensor when ``ref`` is one, else
+    ``local`` itself."""
     if not is_dtensor(ref):
         return local
     from torch.distributed.tensor import DTensor
-    return DTensor.from_local(local, ref.device_mesh, ref.placements,
-                              run_check=False)
+    return DTensor.from_local(local, ref.device_mesh,
+                              ref.placements if placements is None
+                              else placements, run_check=False)
+
+
+def local(t, ref):
+    """This rank's block of the DTensor ``t``, read beside the activation
+    ``ref`` by a computation on each rank's own blocks: its gradient is a
+    partial sum over the mesh dims that split ``ref`` and not ``t`` (each
+    rank adds the part of its own rows or heads).  Anything else comes
+    back as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Partial
+    return t.to_local(grad_placements=tuple(
+        Partial() if r.is_shard() and not p.is_shard() else p
+        for p, r in zip(t.placements, ref.placements)))
+
+
+def split_last(x, sizes: Sequence[int], lead: Sequence[Optional[str]],
+               names: Sequence[Optional[str]]):
+    """``x`` (..., N) cut along its last dim into consecutive pieces of
+    ``sizes``, piece i laid out as ``shard(piece, *lead, names[i])``, after
+    ``x`` itself takes ``shard(x, *lead, "mlp")`` (a partial sum
+    reduced).
+
+    A plain tensor's pieces are its slices.  A DTensor whose last dim is
+    split over a mesh dim, in blocks whose bounds are not the pieces'
+    (mamba2's in_proj output: z | xBC | dt), is cut by one all-to-all over
+    that dim: each rank sends every other rank the columns of its block
+    that the other's pieces take (a piece split over the dim: that rank's
+    block of it; a piece whole along it: all of it), and nothing else.
+    DTensor's own slice would gather the whole of ``x`` on every rank.
+    The gradient goes back the same way (a whole piece's gradient, whole
+    on every rank, is taken from the rank's own copy)."""
+    bounds = [0]
+    for s in sizes:
+        bounds.append(bounds[-1] + s)
+    if bounds[-1] != x.shape[-1]:
+        raise ValueError(f"pieces of {tuple(sizes)} do not cut a last dim "
+                         f"of {x.shape[-1]}")
+    if not is_dtensor(x):
+        return [x[..., a:b] for a, b in zip(bounds, bounds[1:])]
+    last = x.ndim - 1
+    want = [spec_placements(tuple(x.shape[:-1]) + (s,), *lead, n)
+            for s, n in zip(sizes, names)]
+    if None in want or rank_mesh().device_mesh != x.device_mesh:
+        raise ValueError("split_last: a DTensor is cut on the active mesh "
+                         "over ranks (use_rules)")
+    x = shard(x, *lead, "mlp")
+    split = [k for k, p in enumerate(x.placements) if p.is_shard(last)]
+    if not split:           # every rank holds every column: cut locally
+        return [_constrain(x[..., a:b], w)
+                for a, b, w in zip(bounds, bounds[1:], want)]
+    if len(split) > 1 or any(p.is_partial() for p in x.placements):
+        raise NotImplementedError(
+            f"split_last: a last dim split over several mesh dims, or a "
+            f"partial sum ({x.placements})")
+    k = split[0]
+    mesh = x.device_mesh
+    whole = [not w[k].is_shard() for w in want]
+    plan = _cut_plan(bounds, whole, mesh.size(k), mesh.get_local_rank(k))
+    outs = _Cut.apply(x.to_local(), plan, mesh.get_group(k))
+    from torch.distributed.tensor import Replicate, Shard
+    return [_constrain(like(o, x, tuple(
+        (Replicate() if w_ else Shard(last)) if m == k else p
+        for m, p in enumerate(x.placements))), w)
+            for o, w_, w in zip(outs, whole, want)]
+
+
+class _CutPlan(NamedTuple):
+    send: list          # per destination: the local columns sent, in order
+    recv: list          # per source: how many columns come from it
+    order: list         # the received columns' positions, piece by piece
+    sizes: list         # each piece's local width
+    back: list          # per destination: the local columns of split pieces
+    back_recv: list     # per source: the split pieces' columns from it
+    back_order: list    # where each such column lands in this rank's block
+    own: list           # (piece, piece column, block column) of whole pieces
+
+
+def _cut_plan(bounds, whole, r: int, j: int) -> _CutPlan:
+    """:func:`split_last`'s all-to-all over ``r`` ranks, for rank ``j``:
+    plain column arithmetic (the same on every rank)."""
+    c = bounds[-1] // r
+
+    def needs(t):               # (piece, first, end) columns rank t takes
+        out = []
+        for i, (a, b) in enumerate(zip(bounds, bounds[1:])):
+            w = (b - a) // r
+            out.append((i, a, b) if whole[i] else
+                       (i, a + t * w, a + (t + 1) * w))
+        return out
+
+    def cols(t, src, split_only=False):   # columns t takes from src's block
+        return [col for i, lo, hi in needs(t)
+                if not (split_only and whole[i])
+                for col in range(max(lo, src * c), min(hi, (src + 1) * c))]
+    send = [[col - j * c for col in cols(t, j)] for t in range(r)]
+    got = [col for src in range(r) for col in cols(j, src)]
+    at = {col: n for n, col in enumerate(got)}
+    mine = needs(j)
+    order = [at[col] for _, lo, hi in mine for col in range(lo, hi)]
+    sizes = [hi - lo for _, lo, hi in mine]
+    # backward: split pieces' gradients return to the columns' owners; a
+    # whole piece's gradient is whole on every rank
+    back = [[sum(sizes[:i]) + col - lo for i, lo, hi in mine
+             if not whole[i] for col in range(max(lo, t * c),
+                                              min(hi, (t + 1) * c))]
+            for t in range(r)]
+    back_got = [col - j * c for src in range(r)
+                for col in cols(src, j, split_only=True)]
+    own = [(i, col - lo, col - j * c) for i, lo, hi in needs(j) if whole[i]
+           for col in range(max(lo, j * c), min(hi, (j + 1) * c))]
+    return _CutPlan(send, [len(cols(j, s)) for s in range(r)], order, sizes,
+                    back, [len(cols(s, j, True)) for s in range(r)],
+                    back_got, own)
+
+
+def _all_to_all_rows(t, out_rows, in_rows, group):
+    """``t``'s rows (dim 0) in blocks of ``in_rows`` sent to the group's
+    ranks in order, the blocks of ``out_rows`` received from them."""
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        t.contiguous(), list(out_rows), list(in_rows), group))
+
+
+class _Cut(torch.autograd.Function):
+    """:func:`split_last`'s move on this rank's block (..., c)."""
+
+    @staticmethod
+    def forward(ctx, x, plan: _CutPlan, group):
+        ctx.plan, ctx.group, ctx.shape = plan, group, x.shape
+        rows = x.movedim(-1, 0)
+        idx = torch.tensor([col for s in plan.send for col in s],
+                           dtype=torch.long, device=x.device)
+        got = _all_to_all_rows(rows.index_select(0, idx), plan.recv,
+                               [len(s) for s in plan.send], group)
+        got = got.index_select(0, torch.tensor(plan.order, dtype=torch.long,
+                                               device=x.device))
+        return tuple(p.movedim(0, -1).contiguous()
+                     for p in got.split(plan.sizes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan, dev = ctx.plan, grads[0].device
+        rows = torch.cat([g.movedim(-1, 0) for g in grads])
+        offsets = [sum(plan.sizes[:i]) for i in range(len(plan.sizes))]
+        idx = torch.tensor([col for s in plan.back for col in s],
+                           dtype=torch.long, device=dev)
+        got = _all_to_all_rows(rows.index_select(0, idx), plan.back_recv,
+                               [len(s) for s in plan.back], ctx.group)
+        g = rows.new_zeros((ctx.shape[-1],) + tuple(rows.shape[1:]))
+        g.index_copy_(0, torch.tensor(plan.back_order, dtype=torch.long,
+                                      device=dev), got)
+        if plan.own:
+            g.index_copy_(0, torch.tensor([b for _, _, b in plan.own],
+                                          dtype=torch.long, device=dev),
+                          rows.index_select(0, torch.tensor(
+                              [offsets[i] + col for i, col, _ in plan.own],
+                              dtype=torch.long, device=dev)))
+        return g.movedim(0, -1), None, None
 
 
 # ---------------------------------------------------------------------------

@@ -103,6 +103,59 @@ def test_ann_share_searches_equal_through_rowgather_and_ref(monkeypatch):
         assert dryrun_ann._same(a, b)
 
 
+ANN_KEYS = {"mesh", "chips", "memory", "queries_per_card", "status",
+            "compile_s", "ops", "hlo_flops", "flops_by_dtype", "hlo_bytes",
+            "collectives", "port_only_collectives", "loop_trips", "backend",
+            "fits", "t_compute_s", "t_memory_s", "t_collective_s",
+            "dominant", "collective_wire_bytes"}
+
+
+def test_ann_cli_partitions_the_four_cells(tmp_path):
+    """Each cell as rank 0 of the counting group on its production mesh:
+    the reference's keys, the loop caps, one card's index bytes as
+    counted, and the walker cell's collectives those of one global round:
+    CheckMetrics' all-reduces (u_sum and any_work stacked, then comps),
+    the gather of the 16 walkers' queues and of their hash tables, and
+    the port's own gather of the answer over ``data``."""
+    out = tmp_path / "ann.json"
+    assert dryrun_ann.main(["--out", str(out)]) == 0
+    res = json.loads(out.read_text())
+    assert sorted(res) == sorted(dryrun_ann.CELLS)
+    rows, k = 64, dryrun_ann.PARAMS.k
+    for name, (kind, multi) in dryrun_ann.CELLS.items():
+        row = res[name]
+        assert set(row) == ANN_KEYS, name
+        assert row["loop_trips"] == {"global_rounds": 12, "local_steps": 8,
+                                     "max_steps": 64}
+        chips = row["chips"]
+        assert chips == (512 if multi else 256)
+        base = dryrun_ann.per_card(kind, multi)["memory"]
+        m = row["memory"]
+        for key in ("index_bytes", "query_bytes", "visited_bytes"):
+            assert m[key] == base[key], (name, key)
+        assert m["query_bytes_passed"] == 1024 * 96 * 4
+        assert m["peak_bytes"] == m["argument_bytes"] + \
+            m["trace_peak_bytes"]
+        coll = {c: v // chips for c, v in row["collectives"].items()}
+        port = row["port_only_collectives"]["all-gather"] // chips
+        if kind == "walker":
+            queues = 16 * rows * 128 * (4 + 4 + 1)
+            tables = 16 * rows * (1 << 16) * 4
+            assert queues + tables == 269_615_104
+            assert port == 16 * rows * (2 * k + 8) * 4
+            assert coll["all-gather"] == queues + tables + port
+            assert coll["all-reduce"] == 3 * rows * 4 == 768
+        else:
+            assert port == 16 * rows * k * 8
+            assert coll["all-gather"] == 16 * rows * k * 8 + port
+            assert coll["all-reduce"] == 0
+        assert coll["all-to-all"] == coll["reduce-scatter"] == 0
+        assert row["t_collective_s"] > 0 and row["hlo_bytes"] > 0
+        # the distance kernel reports its FLOPs on meta, as on a card
+        assert row["hlo_flops"] == row["flops_by_dtype"]["f32"] > 0
+        assert row["t_compute_s"] > 0
+
+
 REF_KEYS = {"arch", "shape", "mesh", "chips", "trace_s", "flops",
             "flops_by_dtype", "bytes", "collectives", "memory",
             "model_flops", "useful_flops_ratio", "t_compute_s",
@@ -123,14 +176,14 @@ def test_dryrun_cli_writes_reference_keys(arch, shape, tmp_path):
     assert sorted(res) == [f"{arch}|{shape}|{m}" for m in
                            ("16x16", "1xh100", "2x16x16")]
     cfg = get_smoke_config(arch)
-    split = cfg.family in dryrun.PARTITIONED
+    assert cfg.family in dryrun.PARTITIONED
     for key, row in res.items():
         assert set(row) == REF_KEYS, key
         assert row["status"] == "ok" and row["flops"] > 0
-        if split and not key.endswith("1xh100"):
-            continue
-        assert row["t_collective_s"] is None and row["collectives"] is None
-        assert row["dominant"] in ("compute", "memory")
+        if key.endswith("1xh100"):
+            assert row["t_collective_s"] is None
+            assert row["collectives"] is None
+            assert row["dominant"] in ("compute", "memory")
     one = res[f"{arch}|{shape}|1xh100"]
     assert one["chips"] == 1 and isinstance(one["fits"], bool)
     mem = one["memory"]
@@ -139,26 +192,23 @@ def test_dryrun_cli_writes_reference_keys(arch, shape, tmp_path):
     wide = res[f"{arch}|{shape}|16x16"]
     assert wide["chips"] == 256
     assert 0 < wide["memory"]["argument_bytes"] <= mem["argument_bytes"]
-    if not split:
-        assert wide["memory"]["peak_bytes"] is None
-    else:
-        # the partitioner: one rank's collectives and peak, its local
-        # shards' bytes those the mesh's specs give a card
-        model = build_model(cfg, device="meta")
-        tcfg = dryrun.train_config_for(cfg)
-        args = dryrun.cell_arguments(model, cfg, SHAPES_BY_NAME[shape], tcfg)
-        for name, multi in (("16x16", False), ("2x16x16", True)):
-            row = res[f"{arch}|{shape}|{name}"]
-            assert row["collectives"] is not None
-            assert any(v > 0 for v in row["collectives"].values())
-            assert row["t_collective_s"] is not None
-            assert row["t_collective_s"] > 0 and row["reason"] is None
-            m = row["memory"]
-            assert m["peak_bytes"] == m["argument_bytes"] + \
-                m["trace_peak_bytes"]
-            assert isinstance(row["fits"], bool)
-            assert m["argument_bytes"] == dryrun.per_card_bytes(
-                args, make_production_mesh(multi, "meta"))
+    # the partitioner: one rank's collectives and peak, its local shards'
+    # bytes those the mesh's specs give a card
+    model = build_model(cfg, device="meta")
+    tcfg = dryrun.train_config_for(cfg)
+    args = dryrun.cell_arguments(model, cfg, SHAPES_BY_NAME[shape], tcfg)
+    for name, multi in (("16x16", False), ("2x16x16", True)):
+        row = res[f"{arch}|{shape}|{name}"]
+        assert row["collectives"] is not None
+        assert any(v > 0 for v in row["collectives"].values())
+        assert row["t_collective_s"] is not None
+        assert row["t_collective_s"] > 0 and row["reason"] is None
+        m = row["memory"]
+        assert m["peak_bytes"] == m["argument_bytes"] + \
+            m["trace_peak_bytes"]
+        assert isinstance(row["fits"], bool)
+        assert m["argument_bytes"] == dryrun.per_card_bytes(
+            args, make_production_mesh(multi, "meta"))
     # a rerun keeps what is cached
     assert dryrun.main(["--smoke", "--arch", arch, "--shape", shape,
                         "--out", str(out)]) == 0

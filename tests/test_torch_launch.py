@@ -191,6 +191,78 @@ def test_tensor_bytes_counts_a_broadcast_once():
     assert tensor_bytes(torch.ones(2, 5)[:, :2]) == 16
 
 
+FILLS = {"zeros_like": lambda x: torch.zeros_like(x),
+         "ones_like": lambda x: torch.ones_like(x),
+         "full_like": lambda x: torch.full_like(x, 2.0),
+         "new_zeros": lambda x: x.new_zeros((3,)),
+         "new_ones": lambda x: x.new_ones((3,)),
+         "new_full": lambda x: x.new_full((3,), 2.0),
+         "empty_like": lambda x: torch.empty_like(x),
+         "new_empty": lambda x: x.new_empty((3,))}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("fill", sorted(FILLS))
+def test_fill_beside_a_tensor_reads_nothing_of_it(fill, device):
+    """A fill or an allocation made beside a tensor takes its shape, dtype
+    and device, not its elements: it reads nothing, and writes its result
+    (a fill) or nothing (an allocation)."""
+    x = torch.empty(1000, 1000, device=device)
+    with OpCounter() as c:
+        out = FILLS[fill](x)
+    (e,) = c.record
+    assert e.bytes_read == 0
+    assert e.bytes_written == (0 if "empty" in fill else tensor_bytes(out))
+
+
+def _meta_launch(name):
+    """Kernel ``name``'s wrapper on meta operands (b 4, c 32, d 96, N 100;
+    the sort (4, 64)): (its call, its entry's FLOPs)."""
+    from repro_torch.kernels.bitonic import sort_pairs
+    from repro_torch.kernels.dedup import dedupdist, dedupdist_int8
+    from repro_torch.kernels.l2dist import l2dist_dma, l2dist_rowgather
+    from repro_torch.quant.kernels import int8dist_rowgather
+    m, (n, d, b, c) = "meta", (100, 96, 4, 32)
+    table = torch.empty(n, d, dtype=torch.bfloat16, device=m)
+    codes = torch.empty(n, d, dtype=torch.int8, device=m)
+    scales = torch.empty(n, 1, device=m)
+    ids = torch.empty(b, c, dtype=torch.int32, device=m)
+    q = torch.empty(b, d, device=m)
+    keys, p0 = (torch.empty(b, 64, device=m),
+                torch.empty(b, 64, dtype=torch.int32, device=m))
+    return {"l2dist_rowgather": (lambda: l2dist_rowgather(table, ids, q),
+                                 b * c * d * 3),
+            "l2dist_dma": (lambda: l2dist_dma(table, ids, q), b * c * d * 3),
+            "dedupdist": (lambda: dedupdist(table, ids, q), b * c * d * 3),
+            "int8dist_rowgather": (
+                lambda: int8dist_rowgather(codes, scales, ids, q),
+                b * c * d * 4),
+            "dedupdist_int8": (lambda: dedupdist_int8(codes, scales, ids, q),
+                               b * c * d * 4),
+            "sort_pairs": (lambda: sort_pairs(keys, p0, p0.clone()),
+                           b * 32 * 21 * 2)}[name]
+
+
+@pytest.mark.parametrize("name", ["l2dist_rowgather", "l2dist_dma",
+                                  "dedupdist", "int8dist_rowgather",
+                                  "dedupdist_int8", "sort_pairs"])
+def test_kernel_wrapper_on_meta_reports_its_launch(name):
+    """On the meta device (the dry run's trace) a kernel's wrapper makes
+    its outputs and reports its launch to the counter as on a card, with
+    its FLOPs, and launches nothing."""
+    from repro_torch.kernels import _cuda
+    call, flops = _meta_launch(name)
+    before = dict(_cuda.LAUNCHES)
+    with OpCounter() as c:
+        out = call()
+    (e,) = [e for e in c.record if e.name.startswith("kernel.")]
+    assert e.name == f"kernel.{name}" and e.flops == flops
+    assert e.bytes_read > 0 and e.bytes_written > 0
+    assert dict(_cuda.LAUNCHES) == before
+    assert all(t.device.type == "meta"
+               for t in (out if isinstance(out, tuple) else (out,)))
+
+
 # ---------------------------------------------------------------------------
 # models on the meta device
 # ---------------------------------------------------------------------------

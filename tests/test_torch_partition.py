@@ -1,7 +1,9 @@
-"""The partitioned ``CausalLM`` on the CPU: DTensor parameters placed by
+"""The partitioned models on the CPU (``CausalLM`` and the ssm, hybrid and
+encdec families): DTensor parameters placed by
 ``sharding.param_shardings`` on a (2, 2) mesh over 4 gloo ranks, against
 the one-device port on the reference's weights, and the dry run's
-counting group (``ranks.init_counting_ranks``) against a real rank.
+counting group (``ranks.init_counting_ranks``) against a real rank, also
+for the ANN dry run's searches.
 
 ``tests/torch_partition_worker.py`` spawns the 4 ranks and the counting
 process once for the module.  The bar: f32 logits within 1e-5 of their
@@ -20,7 +22,8 @@ from repro_torch.models import build_model
 from repro_torch.models.convert import tree_from_jax
 from repro_torch.treepath import flatten_with_path, keystr_simple
 
-ARCHS = worker.LM_ARCHS + (worker.VLM_ARCH,)
+RUNS = worker.LM_ARCHS + worker.FAMILY_ARCHS
+ARCHS = RUNS + (worker.VLM_ARCH,)
 
 
 def _ref_tree(arch):
@@ -39,7 +42,7 @@ def runs(tmp_path_factory):
     np.savez(weights, **flat)
     got = worker.spawn(str(tmp), str(weights))
     want = {arch: worker.run_lm(arch, tree_from_jax(trees[arch], "cpu"))
-            for arch in worker.LM_ARCHS}
+            for arch in RUNS}
     cfg = worker.smoke_cfg(worker.VLM_ARCH)
     x = worker.inputs(worker.VLM_ARCH)
     logits, st = build_model(cfg, device="cpu").prefill(
@@ -59,7 +62,7 @@ def _close(got, want, what):
     assert err <= tol, f"{what}: {err} > {tol}"
 
 
-@pytest.mark.parametrize("arch", worker.LM_ARCHS)
+@pytest.mark.parametrize("arch", RUNS)
 @pytest.mark.parametrize("part", ["logits", "decode"])
 def test_partitioned_lm_equals_one_device(runs, arch, part):
     got, want = runs
@@ -71,7 +74,7 @@ def test_partitioned_lm_equals_one_device(runs, arch, part):
                    f"{arch} {k} rank {r}")
 
 
-@pytest.mark.parametrize("arch", worker.LM_ARCHS)
+@pytest.mark.parametrize("arch", RUNS)
 def test_partitioned_train_step_equals_one_device(runs, arch):
     got, want = runs
     w = want[arch]
@@ -103,6 +106,23 @@ def test_counting_record_equals_gloo_rank(runs):
         assert a == b, f"op {i}: {a} != {b}"
     assert any(e[0].startswith("_c10d_functional.") for e in real)
     assert got["counting"]["arg_bytes"] == got["rank0"]["arg_bytes"]
+
+
+@pytest.mark.parametrize("kind", ["walker", "corpus"])
+def test_ann_counting_collectives_equal_gloo_rank(runs, kind):
+    """The ANN dry run's trace on the meta device (each loop body once)
+    issues the collectives a gloo rank's one-trip search issues, op for
+    op, and ranks 0 and 3 issue the same ones."""
+    got, _ = runs
+    meta, real = got["counting"]["ann"][kind], got["rank0"]["ann"][kind]
+    assert len(meta) == len(real) and len(meta) > 0
+    for i, (a, b) in enumerate(zip(meta, real)):
+        assert a == b, f"{kind} collective {i}: {a} != {b}"
+    assert real == got["rank3"]["ann"][kind]
+    names = {e[0] for e in real}
+    assert "c10d.allgather_.default" in names
+    if kind == "walker":
+        assert "c10d.allreduce_.default" in names
 
 
 def test_rank_zero_record_equals_rank_three(runs):

@@ -12,11 +12,14 @@ group.
   ``chip_smoke.partition_run``: the forward's logits, a prefill and
   :data:`DECODE_STEPS` decode steps (in place) and one train step of
   several microbatches; then qwen2-vl's prefill with M-RoPE positions;
-  it also records the op record of :data:`RECORD_ARCH`'s decode step
-  (qwen2.5's smoke config) under ``OpCounter``;
+  then :data:`FAMILY_ARCHS` (mamba2, zamba2, whisper) alike; it also
+  records the op record of :data:`RECORD_ARCH`'s decode step (qwen2.5's
+  smoke config) under ``OpCounter`` and the collectives of the ANN dry
+  run's walker and corpus searches on small CPU graphs (:func:`ann_records`);
 * the counting process (:func:`counting_main`) joins a counting group of
   4 ranks as rank 0 (``ranks.init_counting_ranks``) and makes the same
-  record on the meta device, counts a DTensor matmul of known placements
+  record on the meta device, and the ANN searches' collectives on meta
+  graphs of the same shapes, counts a DTensor matmul of known placements
   and a shard move (:func:`shard_move`, which the gloo ranks run too),
   and checks that the real entry points refuse the group.
 
@@ -44,6 +47,8 @@ LM_ARCHS = ("llama3.2-3b", "llama3.2-3b-kv1", "qwen3-moe-30b-a3b",
 VARIANTS = {"llama3.2-3b-kv1": ("llama3.2-3b", {"num_kv_heads": 1}),
             "qwen3-moe-30b-a3b-a2a": ("qwen3-moe-30b-a3b", {})}
 A2A = ("qwen3-moe-30b-a3b-a2a",)
+# the ssm, hybrid and encdec families
+FAMILY_ARCHS = ("mamba2-2.7b", "zamba2-7b", "whisper-large-v3")
 VLM_ARCH = "qwen2-vl-7b"
 B, S, S_MAX = 4, 8, 16
 DECODE_STEPS = 4
@@ -51,7 +56,9 @@ MICROBATCHES = 2
 # (batch, prompt, microbatches) where not (B, S, MICROBATCHES): a data
 # rank's 3 rows, 21 tokens, a decode step's 3 and a microbatch's 7, none
 # of which splits over the 2 model ranks, so the a2a layer pads each
-SHAPES = {"qwen3-moe-30b-a3b-a2a": (6, 7, 3)}
+SHAPES = {"qwen3-moe-30b-a3b-a2a": (6, 7, 3),
+          # two SSD chunks of the smoke config's 8
+          "mamba2-2.7b": (4, 16, 2)}
 RECORD_ARCH = "qwen2.5-3b"
 
 
@@ -67,16 +74,21 @@ def smoke_cfg(arch: str, get=None):
 def inputs(arch: str) -> dict:
     """The numpy-seeded inputs every run of ``arch`` takes: prompt tokens
     (b, s), the decode tokens (steps, b, 1), train targets and a 0/1 mask,
-    and the vlm's (3, b, s) positions."""
+    the vlm's (3, b, s) positions and, for an encoder-decoder, its frames
+    (b, encoder_ctx, d_model)."""
     cfg = smoke_cfg(arch)
     b, s, _ = SHAPES.get(arch, (B, S, MICROBATCHES))
     rng = np.random.RandomState(3)
     v = cfg.vocab_size
-    return {"tokens": rng.randint(0, v, (b, s)).astype(np.int32),
-            "steps": rng.randint(0, v, (DECODE_STEPS, b, 1)).astype(np.int32),
-            "targets": rng.randint(0, v, (b, s)).astype(np.int32),
-            "mask": (rng.rand(b, s) > 0.25).astype(np.float32),
-            "positions": rng.randint(0, 3 * s, (3, b, s)).astype(np.int32)}
+    out = {"tokens": rng.randint(0, v, (b, s)).astype(np.int32),
+           "steps": rng.randint(0, v, (DECODE_STEPS, b, 1)).astype(np.int32),
+           "targets": rng.randint(0, v, (b, s)).astype(np.int32),
+           "mask": (rng.rand(b, s) > 0.25).astype(np.float32),
+           "positions": rng.randint(0, 3 * s, (3, b, s)).astype(np.int32)}
+    if cfg.encoder_layers:
+        out["frames"] = rng.randn(b, cfg.encoder_ctx,
+                                  cfg.d_model).astype(np.float32)
+    return out
 
 
 def run_lm(arch: str, tree, mesh=None) -> dict:
@@ -154,7 +166,7 @@ def rank_main(rank: int, tmp: str, weights: str) -> None:
         return place(t, RankSharding(mesh.device_mesh, _placements(
             spec, mesh.axis_names), spec, mesh.device))
     res = {"rank": rank}
-    for arch in LM_ARCHS:
+    for arch in LM_ARCHS + FAMILY_ARCHS:
         res[arch] = run_lm(arch, tree_from_jax(load_tree(weights, arch),
                                                "cpu"), mesh)
     with use_rules(DEFAULT_RULES, mesh):
@@ -172,6 +184,7 @@ def rank_main(rank: int, tmp: str, weights: str) -> None:
     res["record"], res["arg_bytes"] = decode_record("cpu", mesh)
     res["shard_move"] = shard_move(mesh, torch.arange(
         64.).reshape(8, 8))
+    res["ann"] = ann_records("cpu", mesh)
     ranks.shutdown()
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
 
@@ -195,6 +208,28 @@ def shard_move(mesh, x) -> dict:
             "local": tuple(moved.to_local().shape),
             "names": [e.name for e in counter.record],
             "collectives": collective_bytes(counter.record)}
+
+
+def ann_records(device: str, mesh) -> dict:
+    """The collectives (``OpEntry.key``) of the ANN dry run's two searches
+    (``dryrun_ann.trace_search``) as this rank of ``mesh`` runs them on
+    small graphs with one trip of each loop: the walker path
+    (``global_rounds=1, local_steps=1``) and the corpus path (one shard a
+    ``model`` position, ``max_steps=1``), hash visited sets of 2**10
+    slots."""
+    from repro_torch.launch import dryrun_ann as da
+    model = mesh.axis_size("model")
+    q = da.make_queries(8, seed=0, device=device, d=8)
+    out = {}
+    for kind, index, cfg in (
+            ("walker", da.make_graph(400, 0, device, d=8, r=5),
+             da.CFG.with_(global_rounds=1, local_steps=1)),
+            ("corpus", da.make_corpus(200, model, 0, device, d=8, r=5),
+             da.CORPUS_CFG.with_(max_steps=1))):
+        counter, _, _ = da.trace_search(kind, index, q, mesh, cfg.with_(
+            dist_backend=da.BACKEND, hash_bits=10))
+        out[kind] = da.collective_keys(counter.record)
+    return out
 
 
 def counting_main(tmp: str) -> None:
@@ -227,6 +262,7 @@ def counting_main(tmp: str) -> None:
             "collectives": collective_bytes(counter.record),
             "peak": counter.peak_bytes})
     res["shard_move"] = shard_move(mesh, torch.empty(8, 8, device="meta"))
+    res["ann"] = ann_records("meta", mesh)
     res["refused"] = _refusals()
     ranks.shutdown()
     torch.save(res, os.path.join(tmp, "counting.pt"))
